@@ -1,0 +1,379 @@
+"""Mapping-level planner: projection pushdown, shared-term factoring, rule groups.
+
+The per-operator planner (:mod:`repro_torch.core.planner`) decides *how* each
+mapping rule runs (SOM / ORM / OJM / CLASS, PJTT reuse, PTT sizing).  This
+module plans one level above the operators — across the whole mapping
+document — reproducing the paper's own follow-up optimizations:
+
+* **Projection pushdown** (MapSDI, arxiv 1909.01032).  For every logical
+  source, the exact set of columns any rule references — subject / object
+  templates, ``rml:reference`` columns, join child/parent columns — is
+  computed up front (:class:`SourcePlan`), so the streamed read can push a
+  strict ``Project`` into the datasource and never materialize or encode
+  an unused column.  Fixed-schema sources (single-file CSV/TSV, the
+  ``tables=`` bypass) project *strictly*: a mapped column missing from the
+  source fails loudly at read time instead of fabricating empty strings.
+
+* **Shared-term factoring** (FunMap, arxiv 2008.13482).  Term maps with the
+  same ``(source, columns)`` evaluation identity — a subject template shared
+  by every predicate-object map of a triples map, a join key probed by
+  several rules and by the PJTT sizing pass — are factored into
+  :class:`SharedTerm` common subexpressions the executor evaluates once per
+  source scan and serves from an int32 cache thereafter.
+
+* **Rule groups** ("Scaling Up", arxiv 2207.xxx lineage).  Rules are
+  partitioned by union–find into independently executable
+  :class:`RuleGroup` s: two rules land in the same group iff they share a
+  logical source, share a predicate (PTT dedup state is per predicate, so
+  same-predicate rules are *not* independent), or are linked by a join
+  dependency (an OJM rule and its parent map).  The groups form the
+  execution DAG ``create_kg`` runs group-by-group — sequentially in one
+  process, and as the scheduling unit for ``rdfize --shards N
+  --shard-workers M`` multi-process builds, where each worker can create a
+  whole group's triples with no cross-worker coordination.
+
+The plan never changes *what* is produced — the executor's output is
+byte-identical with the planner on or off (property-tested) — only how
+many columns are read, how many times a term is evaluated, and in what
+grouping the rules run.  :meth:`MappingPlan.explain` renders the whole
+thing as the stable tree behind ``rdfize --explain-mapping`` and
+``repro_torch.launch.rdfize --explain-mapping``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+from repro_torch.rml.model import MappingDocument
+
+_GLOB_CHARS = ("*", "?", "[")
+
+
+def is_sharded_path(path: str) -> bool:
+    """True when ``path`` is a glob pattern (and not a literal file that
+    happens to contain glob metacharacters, e.g. ``data[v2]/child.csv``)."""
+    return any(c in path for c in _GLOB_CHARS) and not os.path.exists(path)
+
+
+@dataclasses.dataclass(frozen=True)
+class SourcePlan:
+    """Column requirements of one logical source across every rule.
+
+    ``columns`` is the exact referenced set (sorted); ``strict`` says the
+    projection may be pushed into the reader in strict mode (missing
+    column -> KeyError at read time) because the source has one fixed
+    schema.  Union-fill sources (JSON records, glob-sharded files) stay
+    tolerant and are validated by the executor's schema-union pass.
+    """
+
+    source_key: str
+    columns: tuple[str, ...]
+    strict: bool
+    n_ops: int  # planned ops reading this source (incl. PJTT builds)
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedTerm:
+    """One factored common subexpression: an encoded term-value column
+    with a ``(source_key, columns)`` identity that two or more evaluation
+    sites share.  ``patterns`` lists the distinct term templates rendered
+    from it (the encoded value column depends only on the columns; the
+    pattern slots in as a dictionary id)."""
+
+    source_key: str
+    columns: tuple[str, ...]
+    n_uses: int
+    patterns: tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class RuleGroup:
+    """One independently-executable partition of the mapping rules.
+
+    Groups are closed over source sharing, predicate sharing, and join
+    dependencies, so executing a group touches only its ``sources``,
+    builds only its ``pjtt_keys``, and emits only its ``predicates`` —
+    no state crosses a group boundary, which is what makes groups both
+    sequentially reorderable and safe to run in separate processes.
+    """
+
+    index: int
+    op_indices: tuple[int, ...]  # indices into the op plan, original order
+    triples_maps: tuple[str, ...]
+    predicates: tuple[str, ...]  # in first-op order (stable)
+    sources: tuple[str, ...]
+    pjtt_keys: tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class MappingPlan:
+    """The document-level plan: op plan + projections + factoring + DAG."""
+
+    exec_plan: object  # repro_torch.core.planner.ExecutionPlan
+    sources: dict[str, SourcePlan]
+    shared: dict[tuple[str, tuple[str, ...]], SharedTerm]
+    groups: tuple[RuleGroup, ...]
+
+    def group_of_predicate(self, predicate: str) -> RuleGroup:
+        for g in self.groups:
+            if predicate in g.predicates:
+                return g
+        raise KeyError(predicate)
+
+    def explain(self, schemas: dict[str, tuple[str, ...]] | None = None) -> str:
+        """Stable human-readable tree (the ``--explain-mapping`` surface).
+
+        ``schemas`` optionally maps source_key -> full column tuple (e.g.
+        peeked CSV headers) so pruned columns can be named; without it the
+        tree shows kept columns only.
+        """
+        return render_explain(self, schemas or {})
+
+
+# --------------------------------------------------------------------------
+# plan construction
+# --------------------------------------------------------------------------
+
+
+class _UnionFind:
+    def __init__(self):
+        self.parent: dict = {}
+
+    def find(self, x):
+        p = self.parent.setdefault(x, x)
+        while p != x:
+            self.parent[x] = p = self.parent.setdefault(p, p)
+            x, p = p, self.parent[p]
+        return x
+
+    def union(self, a, b):
+        ra, rb = self.find(a), self.find(b)
+        if ra != rb:
+            self.parent[rb] = ra
+
+
+def _is_strict_source(source_key: str) -> bool:
+    """Strict (fixed-schema) iff single-file CSV/TSV — mirrors the
+    executor's ``fill_of`` policy; JSON and glob-sharded paths union-fill."""
+    from repro_torch.rml.model import parse_source_key
+
+    fmt, path, _ = parse_source_key(source_key)
+    return fmt in ("csv", "tsv") and not is_sharded_path(path)
+
+
+def build_plan(doc: MappingDocument) -> MappingPlan:
+    """Plan the whole mapping document (pure analysis, no I/O)."""
+    from repro_torch.core import planner
+
+    exec_plan = planner.plan(doc)
+    ops = exec_plan.ops
+
+    # ---- per-evaluation-site term tuples: (source_key, columns) -> uses
+    uses: dict[tuple[str, tuple[str, ...]], int] = {}
+    patterns: dict[tuple[str, tuple[str, ...]], set] = {}
+
+    def use(skey: str, cols: tuple[str, ...], pattern: str | None = None):
+        if not cols:
+            return  # constant terms read nothing and need no cache
+        k = (skey, tuple(cols))
+        uses[k] = uses.get(k, 0) + 1
+        if pattern is not None:
+            patterns.setdefault(k, set()).add(pattern)
+
+    refcols: dict[str, set] = {}
+    n_ops_per_src: dict[str, int] = {}
+    for op in ops:
+        cols = refcols.setdefault(op.source_key, set())
+        n_ops_per_src[op.source_key] = n_ops_per_src.get(op.source_key, 0) + 1
+        cols.update(op.subj_columns)
+        use(op.source_key, op.subj_columns, op.subj_pattern)
+        if op.kind == "OJM":
+            cols.add(op.join_child_column)
+            use(op.source_key, (op.join_child_column,))
+        else:
+            cols.update(op.obj_columns)
+            use(op.source_key, op.obj_columns, op.obj_pattern)
+    for psrc, pcol, ppat, pcols in exec_plan.pjtt_builds.values():
+        cols = refcols.setdefault(psrc, set())
+        n_ops_per_src[psrc] = n_ops_per_src.get(psrc, 0) + 1
+        cols.add(pcol)
+        cols.update(pcols)
+        use(psrc, (pcol,))
+        use(psrc, tuple(pcols), ppat)
+
+    sources = {
+        skey: SourcePlan(
+            source_key=skey,
+            columns=tuple(sorted(cols)),
+            strict=_is_strict_source(skey),
+            n_ops=n_ops_per_src.get(skey, 0),
+        )
+        for skey, cols in sorted(refcols.items())
+    }
+
+    shared = {
+        k: SharedTerm(
+            source_key=k[0],
+            columns=k[1],
+            n_uses=n,
+            patterns=tuple(sorted(patterns.get(k, ()))),
+        )
+        for k, n in sorted(uses.items())
+        if n >= 2
+    }
+
+    # ---- rule groups: union-find over ops.  Edges: shared source, shared
+    # predicate (PTT dedup state is per predicate), join dependency
+    # (child op <-> parent source).
+    uf = _UnionFind()
+    for i, op in enumerate(ops):
+        uf.union(("op", i), ("src", op.source_key))
+        uf.union(("op", i), ("pred", op.predicate))
+        if op.kind == "OJM":
+            uf.union(("op", i), ("src", op.parent_source_key))
+
+    roots: dict = {}
+    members: dict = {}
+    for i in range(len(ops)):
+        r = uf.find(("op", i))
+        roots.setdefault(r, len(roots))
+        members.setdefault(r, []).append(i)
+    # order groups by their first op (document order) for a stable DAG
+    ordered = sorted(members.values(), key=lambda idxs: idxs[0])
+
+    groups = []
+    for gi, idxs in enumerate(ordered):
+        tms, preds, srcs, pkeys = [], [], [], []
+        for i in idxs:
+            op = ops[i]
+            if op.triples_map not in tms:
+                tms.append(op.triples_map)
+            if op.predicate not in preds:
+                preds.append(op.predicate)
+            if op.source_key not in srcs:
+                srcs.append(op.source_key)
+            if op.kind == "OJM":
+                if op.parent_source_key not in srcs:
+                    srcs.append(op.parent_source_key)
+                if op.pjtt_key not in pkeys:
+                    pkeys.append(op.pjtt_key)
+        groups.append(
+            RuleGroup(
+                index=gi,
+                op_indices=tuple(idxs),
+                triples_maps=tuple(tms),
+                predicates=tuple(preds),
+                sources=tuple(srcs),
+                pjtt_keys=tuple(pkeys),
+            )
+        )
+
+    return MappingPlan(
+        exec_plan=exec_plan,
+        sources=sources,
+        shared=shared,
+        groups=tuple(groups),
+    )
+
+
+# --------------------------------------------------------------------------
+# explain rendering
+# --------------------------------------------------------------------------
+
+
+def _shorten(iri: str) -> str:
+    return iri.rsplit("/", 1)[-1].rsplit("#", 1)[-1] or iri
+
+
+def render_explain(
+    plan: MappingPlan, schemas: dict[str, tuple[str, ...]]
+) -> str:
+    """The ``--explain-mapping`` tree.  Deliberately stable: sorted sources
+    and shared terms, document-ordered groups and rules — tests and docs
+    pin substrings of this output."""
+    ops = plan.exec_plan.ops
+    lines = [
+        f"mapping plan: {len(ops)} rules over {len(plan.sources)} sources "
+        f"-> {len(plan.groups)} groups "
+        f"({len(plan.shared)} shared terms factored)"
+    ]
+    for g in plan.groups:
+        last_g = g.index == len(plan.groups) - 1
+        gpfx = "└─" if last_g else "├─"
+        cpfx = "   " if last_g else "│  "
+        lines.append(
+            f"{gpfx} group {g.index}: "
+            f"{len(g.op_indices)} rules, maps [{', '.join(g.triples_maps)}]"
+        )
+        sections: list[tuple[str, list[str]]] = []
+        src_lines = []
+        for skey in sorted(g.sources):
+            sp = plan.sources[skey]
+            kept = ", ".join(sp.columns)
+            schema = schemas.get(skey)
+            if schema:
+                pruned = [c for c in schema if c not in sp.columns]
+                detail = (
+                    f"kept {len(sp.columns)}/{len(schema)} columns"
+                    f" [{kept}]"
+                )
+                if pruned:
+                    detail += f" pruned [{', '.join(pruned)}]"
+            else:
+                detail = f"kept [{kept}]"
+            mode = "strict" if sp.strict else "union-fill"
+            src_lines.append(f"source {skey} ({mode}): {detail}")
+        sections.append(("sources", src_lines))
+
+        fac = [
+            s
+            for k, s in sorted(plan.shared.items())
+            if k[0] in g.sources
+        ]
+        if fac:
+            sections.append(
+                (
+                    "factored terms",
+                    [
+                        f"{s.source_key} [{', '.join(s.columns)}] "
+                        f"x{s.n_uses} uses"
+                        for s in fac
+                    ],
+                )
+            )
+        if g.pjtt_keys:
+            sections.append(
+                (
+                    "join indexes",
+                    [
+                        "PJTT "
+                        + pk.replace("\x1f", " on ")
+                        for pk in g.pjtt_keys
+                    ],
+                )
+            )
+        rule_lines = []
+        for i in g.op_indices:
+            op = ops[i]
+            extra = ""
+            if op.kind == "OJM":
+                extra = (
+                    f" (join {op.join_child_column} = "
+                    f"{op.parent_join_column})"
+                )
+            rule_lines.append(
+                f"{op.kind:5s} {op.triples_map} -> "
+                f"{_shorten(op.predicate)}{extra}"
+            )
+        sections.append(("rules", rule_lines))
+
+        for si, (title, items) in enumerate(sections):
+            last_s = si == len(sections) - 1
+            spfx = "└─" if last_s else "├─"
+            ipfx = "   " if last_s else "│  "
+            lines.append(f"{cpfx}{spfx} {title}")
+            for ii, item in enumerate(items):
+                leaf = "└─" if ii == len(items) - 1 else "├─"
+                lines.append(f"{cpfx}{ipfx}{leaf} {item}")
+    return "\n".join(lines)
