@@ -9,23 +9,30 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   1. device and toolchain: the card's name and power limit, the torch,
      CUDA, nvcc and Triton versions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-     source, started together) and time the build;
+  2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+     per source, started together) and time the build;
   3. make the paper's testbeds (SOM and OJM, two predicate-object maps,
-     75% duplicates) at 100K and 1M rows, written as CSV with RML mappings;
+     75% duplicates) at 100K and 1M rows, and an OJM one at 20K rows,
+     written as CSV with RML mappings;
   4. hold each kernel against its plain PyTorch version on the card, at
      the shapes the main path gives it, with exact equality (every output is
      an integer); after a warm-up, time the kernel on the device with
      ``torch.profiler`` and one wrapper call and the plain version with CUDA
      events; bound each by the bytes its input needs and by the operations
-     it needs (K1: its compiled loop, read with ``cuobjdump -sass``);
-  5. drive ``rdfize`` through ``repro_torch.launch.rdfize.main``: every
-     testbed on the card with the kernels' launch counters set to 0 just
-     before and read just after; then the 100K testbeds on the CPU, whose
-     N-Triples must be byte-identical to the card's; the 1M outputs must hold
-     no duplicate line and exactly the distinct triples a numpy count of the
-     CSV gives; a profiled rerun of each 1M testbed gives the card's busy
-     share over the whole run;
+     it needs (K1: its compiled loop, read with ``cuobjdump -sass``; K3: one
+     compare a (child, parent) pair, on the pipe the compiled compare
+     issues to);
+  5. drive ``rdfize`` through ``repro_torch.launch.rdfize.main``, each path
+     with the kernels' launch counters set to 0 just before it and read just
+     after: the optimized engine (sorted PJTT) on every testbed, then at 1M
+     rows the naive engine (SOM, and OJM: the paper's "did not finish"
+     cell), the hash PJTT (OJM) and the streamed engine (SOM, OJM).  The
+     100K runs, and the naive OJM at 20K, are repeated on the CPU and their
+     N-Triples must be byte-identical to the card's; every 1M output must
+     hold no duplicate line, exactly the distinct triples a numpy count of
+     the CSV gives, and the same sorted lines as the optimized eager run; a
+     profiled rerun of the optimized 1M runs and of the naive OJM 1M run
+     gives the card's busy share over the whole run;
   6. print the kernels line (one JSON object), the card line, and last the
      result line ``{"ok": true, "device": {...}}``.
 
@@ -35,6 +42,7 @@ lives under ``build/chip_smoke/`` and is removed at the end.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -59,6 +67,8 @@ ALU_OPCODES = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "IMNMX",
 OPS_PER_PROBE = 12  # K2: slot arithmetic, two shared loads, compares, claim
 N_POMS, DUP = 2, 0.75
 ROWS_SMALL, ROWS_PAPER = 100_000, 1_000_000  # the paper's 1M tier
+ROWS_NAIVE_CPU = 20_000  # the naive OJM on the CPU: 4e8 compares a map
+K3_SLICE = 65_536  # child rows of the 1M shape checked against the plain join
 
 
 def log(msg: str) -> None:
@@ -122,16 +132,17 @@ def device_ms(fn, kernel: str, setup=None, reps: int = 20):
     return statistics.median(times) / 1e3 if times else None
 
 
-def timed(name, kernel, fn, plain, shape, nbytes, ops_ms, setup=None, **extra) -> dict:
+def timed(name, kernel, fn, plain, shape, nbytes, ops_ms, setup=None, reps=20,
+          plain_reps=5, plain_warmup=3, **extra) -> dict:
     """One kernels-line timing entry: the kernel's device time (``ms``,
     profiler), the time of one wrapper call by CUDA events (``call_ms``,
     host launch overhead included), the plain version's call time and the
     bound: the larger of the bytes this input needs over the memory rate
     (``bytes_ms``) and the operations it needs over the integer rates
     (``ops_ms``)."""
-    ms_dev = device_ms(fn, kernel, setup)
-    call = cuda_ms(fn, setup)
-    plain_ms = cuda_ms(plain, setup, reps=5)
+    ms_dev = device_ms(fn, kernel, setup, reps=reps)
+    call = cuda_ms(fn, setup, reps=reps)
+    plain_ms = cuda_ms(plain, setup, reps=plain_reps, warmup=plain_warmup)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     entry = dict(shape=shape, ms=ms_dev if ms_dev is not None else call,
                  ms_by="profiler" if ms_dev is not None else "events", call_ms=call,
@@ -242,16 +253,16 @@ def make_testbeds():
 
     shutil.rmtree(WORK, ignore_errors=True)
     beds = {}
-    for n_rows in (ROWS_SMALL, ROWS_PAPER):
-        for kind in ("SOM", "OJM"):
-            t0 = time.perf_counter()
-            tb = generator.make_testbed(kind, n_rows, DUP, n_poms=N_POMS, seed=0)
-            d = os.path.join(WORK, tb.name)
-            tb.write(d)
-            serializer.write_turtle(tb.doc, os.path.join(d, "map.ttl"))
-            beds[(kind, n_rows)] = (tb, d, time.perf_counter() - t0)
-            log(f"testbed {tb.name}: made and written as CSV in "
-                f"{beds[(kind, n_rows)][2]:.2f} s")
+    for kind, n_rows in [(k, n) for n in (ROWS_SMALL, ROWS_PAPER) for k in ("SOM", "OJM")] + [
+            ("OJM", ROWS_NAIVE_CPU)]:
+        t0 = time.perf_counter()
+        tb = generator.make_testbed(kind, n_rows, DUP, n_poms=N_POMS, seed=0)
+        d = os.path.join(WORK, tb.name)
+        tb.write(d)
+        serializer.write_turtle(tb.doc, os.path.join(d, "map.ttl"))
+        beds[(kind, n_rows)] = (tb, d, time.perf_counter() - t0)
+        log(f"testbed {tb.name}: made and written as CSV in "
+            f"{beds[(kind, n_rows)][2]:.2f} s")
     return beds
 
 
@@ -267,15 +278,28 @@ def ojm_shape(tb):
     return int(span.sum()), int(span.max())
 
 
+def join_inputs(tb, dev):
+    """The OJM testbed's join as K3 takes it: parent keys and subjects and
+    child keys, dictionary ids (int32) on the card."""
+    import numpy as np
+    import torch
+
+    child, parent = tb.child["ACCESSION_NUMBER"], tb.parent["ACCESSION_NUMBER"]
+    _, kid = np.unique(np.concatenate([child, parent]).astype(str), return_inverse=True)
+    _, sid = np.unique(tb.parent["EXON_ID"].astype(str), return_inverse=True)
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
+                 for a in (kid[len(child):], sid, kid[: len(child)]))
+
+
 def phase_kernels(beds, rates):
-    """K1 and K2 against their plain versions on the card, at main-path
+    """K1, K2 and K3 against their plain versions on the card, at main-path
     shapes; returns the kernels-line entries (launches filled in later)."""
     import numpy as np
     import torch
 
     from repro_torch.core import ptt
     from repro_torch.core.hashset import next_pow2
-    from repro_torch.kernels import _build, bucket_dedup, hash_mix, ops
+    from repro_torch.kernels import _build, bucket_dedup, hash_mix, nested_join, ops
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -393,9 +417,46 @@ def phase_kernels(beds, rates):
             setup=fresh, keys=int(b.kval.sum()), probes=stats["probes"],
             sectors=sectors, design_bytes=design,
             design_ms=design / HBM_BYTES_PER_S * 1e3))
+    # ---- K3 nested_join: the naive OJM's join, on the testbeds' own keys
+    k3_loop = sass_loop(_build._target("nested_join"), "nested_join_kernel")
+    check("ISETP" in k3_loop, f"no ISETP compare in the compiled scan loop: {k3_loop}")
+    log(f"K3 compiled scan loop: {sum(k3_loop.values())} instructions {k3_loop}; the "
+        "compare is ISETP, on the ALU pipe")
+    k3_err, k3_entries = 0, []
+
+    def k3_case(name, pk, ps, ck, K):
+        nonlocal k3_err
+        got = nested_join.nested_join(pk, ps, ck, K)
+        want = nested_join.nested_join_plain(pk, ps, ck, K)
+        torch.cuda.synchronize()
+        e = max_abs_err(zip(got, want))
+        k3_err = max(k3_err, e)
+        log(f"K3 nested_join {name}: m={ck.numel()} n={pk.numel()} K={K} matches="
+            f"{int(got[1].sum())} truncated={bool(got[2])}: max_abs_err {e}")
+        check(e == 0, f"nested_join disagrees with its plain version ({name})")
+
+    def k3_timed(pk, ps, ck, K, **kw):
+        m, n = ck.numel(), pk.numel()
+        return timed(
+            "K3", "nested_join_kernel", lambda _: nested_join.nested_join(pk, ps, ck, K),
+            lambda _: nested_join.nested_join_plain(pk, ps, ck, K), f"m={m},n={n},K={K}",
+            nbytes=4 * m + 8 * n + 5 * m * K,
+            ops_ms=m * n / (ALU_LANES * rates["sms"] * rates["clock_hz"]) * 1e3,
+            compares=m * n, **kw)
+
+    small = join_inputs(beds[("OJM", ROWS_SMALL)][0], dev)
+    _, K_small = ojm_shape(beds[("OJM", ROWS_SMALL)][0])
+    k3_case("100K OJM", *small, K_small)
+    k3_case("100K OJM, K=1 (truncated)", *small, 1)
+    paper = join_inputs(beds[("OJM", ROWS_PAPER)][0], dev)
+    pk, ps, ck = paper
+    k3_case(f"1M OJM, child rows 0..{K3_SLICE}", pk, ps, ck[:K3_SLICE].contiguous(), K)
+    k3_entries.append(k3_timed(*small, K_small, plain_reps=3))
+    k3_entries.append(k3_timed(pk, ps, ck, K, reps=5, plain_reps=1, plain_warmup=0))
     return {
         "hash_mix": dict(err=k1_err, timings=k1_entries),
         "bucket_dedup": dict(err=k2_err, timings=k2_entries),
+        "nested_join": dict(err=k3_err, timings=k3_entries),
     }
 
 
@@ -449,17 +510,32 @@ def expected_triples(tb, d) -> dict[str, int]:
     return out
 
 
+# (label, rdfize flags, the kernels that path must launch)
+PATHS = {
+    "optimized": ([], ("hash_mix", "bucket_dedup")),
+    "naive": (["--engine", "naive"], ("hash_mix",)),
+    "hash": (["--join", "hash"], ("hash_mix", "bucket_dedup")),
+    "stream": (["--stream"], ("hash_mix", "bucket_dedup")),
+}
+NAIVE_OJM_KERNELS = ("hash_mix", "nested_join")
+
+
+def sorted_digest(lines) -> str:
+    return hashlib.sha256("\n".join(sorted(lines)).encode()).hexdigest()
+
+
 def phase_rdfize(beds, kernel_mods):
     from repro_torch.launch import rdfize
 
-    def run(tb, d, device):
-        out = os.path.join(d, f"kg-{device}.nt")
+    def run(kind, n_rows, path, device):
+        tb, d, made_s = beds[(kind, n_rows)]
+        out = os.path.join(d, f"kg-{path}-{device}.nt")
         t0 = time.perf_counter()
         result = rdfize.main(["--mapping", os.path.join(d, "map.ttl"), "--data-root", d,
-                              "--out", out, "--device", device])
+                              "--out", out, "--device", device, *PATHS[path][0]])
         total = time.perf_counter() - t0
-        log(f"rdfize {tb.name} on {device}: {result.n_triples} triples in {total:.3f} s "
-            f"end to end (CSV made and written before: {beds_time(tb)[2]:.2f} s; "
+        log(f"rdfize {tb.name} {path} on {device}: {result.n_triples} triples in "
+            f"{total:.3f} s end to end (CSV made and written before: {made_s:.2f} s; "
             f"load+encode {result.load_encode_s:.3f} s; engine rest "
             f"{result.wall_time_s - result.load_encode_s:.3f} s; parse+plan+N-Triples "
             f"{total - result.wall_time_s:.3f} s); {result.n_triples / total:.0f} triples/s "
@@ -467,66 +543,78 @@ def phase_rdfize(beds, kernel_mods):
             " triples/s in the engine after encoding")
         return result, out
 
-    def beds_time(tb):
-        return next(v for v in beds.values() if v[0] is tb)
-
-    order = [("SOM", ROWS_SMALL), ("OJM", ROWS_SMALL), ("SOM", ROWS_PAPER), ("OJM", ROWS_PAPER)]
-    totals = {name: 0 for name in kernel_mods}
-    outs = {}
-    for key in order:
-        tb, d, _ = beds[key]
+    def run_on_card(kind, n_rows, path):
         for mod in kernel_mods.values():  # counts to 0 just before the run
             mod.launches = 0
-        result, path = run(tb, d, "cuda")
+        result, out = run(kind, n_rows, path, "cuda")
         counts = {name: mod.launches for name, mod in kernel_mods.items()}  # just after
-        log(f"  launches during {tb.name}: {counts}")
+        log(f"  launches during {path} {kind} {n_rows}: {counts}")
+        need = NAIVE_OJM_KERNELS if (path, kind) == ("naive", "OJM") else PATHS[path][1]
+        for name in need:
+            check(counts[name] > 0, f"{name} was never launched on the {path} {kind} path")
         for name in totals:
             totals[name] += counts[name]
-        outs[key] = (result, path)
-    for name, n in totals.items():
-        check(n > 0, f"{name} was never launched on the main path")
+        return result, out
 
-    for kind in ("SOM", "OJM"):  # the small tier on the CPU: same bytes
-        tb, d, _ = beds[(kind, ROWS_SMALL)]
-        _, cpu_path = run(tb, d, "cpu")
-        with open(cpu_path, "rb") as f1, open(outs[(kind, ROWS_SMALL)][1], "rb") as f2:
-            check(f1.read() == f2.read(), f"{tb.name}: cuda and cpu N-Triples differ")
-        log(f"{tb.name}: cuda and cpu N-Triples are byte-identical")
-
-    for kind in ("SOM", "OJM"):  # the paper's tier: no duplicate, exact counts
-        tb, d, _ = beds[(kind, ROWS_PAPER)]
-        result, path = outs[(kind, ROWS_PAPER)]
+    def read_lines(path):
         with open(path, encoding="utf-8") as f:
-            lines = f.read().splitlines()
-        check(len(lines) == result.n_triples, f"{tb.name}: line count")
-        check(len(set(lines)) == len(lines), f"{tb.name}: duplicate N-Triples lines")
-        want = expected_triples(tb, d)
-        got = {p: st.n_unique for p, st in result.stats.items()}
-        check(got == want, f"{tb.name}: triples per predicate {got} != numpy {want}")
-        log(f"{tb.name}: {len(lines)} distinct lines; per-predicate counts equal "
-            f"numpy's distinct pairs from the CSV: {want}")
+            return f.read().splitlines()
+
+    def same_bytes_as_cpu(kind, n_rows, path, cuda_out):
+        _, cpu_out = run(kind, n_rows, path, "cpu")
+        with open(cpu_out, "rb") as f1, open(cuda_out, "rb") as f2:
+            check(f1.read() == f2.read(), f"{path} {kind} {n_rows}: cuda and cpu N-Triples differ")
+        log(f"{path} {kind} {n_rows}: cuda and cpu N-Triples are byte-identical")
+        os.remove(cpu_out)
+
+    totals = {name: 0 for name in kernel_mods}
+    digests = {}
+    for n_rows in (ROWS_SMALL, ROWS_PAPER):  # the optimized eager engine
+        for kind in ("SOM", "OJM"):
+            result, out = run_on_card(kind, n_rows, "optimized")
+            if n_rows == ROWS_SMALL:
+                same_bytes_as_cpu(kind, n_rows, "optimized", out)
+            else:
+                check_paper_tier(beds, kind, "optimized", result, out, digests)
+            os.remove(out)
+
+    # the paths of slice 2 at the paper's tier, each against the optimized
+    # eager run's sorted lines; then on the small tier, cuda against cpu
+    for path, kinds in (("naive", ("SOM", "OJM")), ("hash", ("OJM",)),
+                        ("stream", ("SOM", "OJM"))):
+        for kind in kinds:
+            result, out = run_on_card(kind, ROWS_PAPER, path)
+            check_paper_tier(beds, kind, path, result, out, digests)
+            os.remove(out)
+    for path, kind, n_rows in (("naive", "SOM", ROWS_SMALL), ("naive", "OJM", ROWS_NAIVE_CPU),
+                               ("hash", "OJM", ROWS_SMALL), ("stream", "SOM", ROWS_SMALL),
+                               ("stream", "OJM", ROWS_SMALL)):
+        _, out = run_on_card(kind, n_rows, path)
+        same_bytes_as_cpu(kind, n_rows, path, out)
+        os.remove(out)
 
     # the paper's tier once more under torch.profiler (CUDA activity only):
     # how busy the card is over a whole rdfize run, and on what
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for kind in ("SOM", "OJM"):
+    for kind, path in (("SOM", "optimized"), ("OJM", "optimized"), ("OJM", "naive")):
         tb, d, _ = beds[(kind, ROWS_PAPER)]
-        log(f"profiled rerun of {tb.name}:")
+        log(f"profiled rerun of {tb.name} {path}:")
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                run(tb, d, "cuda")
+                _, out = run(kind, ROWS_PAPER, path, "cuda")
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             events = prof.events()
+            os.remove(out)
         except Exception as e:  # a measurement the card could not give
             log(f"  torch.profiler failed ({type(e).__name__}: {e})")
             events = []
         dev = [e for e in events if str(e.device_type).endswith("CUDA")]
         if not dev:
-            log(f"  device busy share: not measured (the profiler recorded no device event)")
+            log("  device busy share: not measured (the profiler recorded no device event)")
             continue
         busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
         per = {k: sum(e.time_range.elapsed_us() for e in dev if f"{k}_kernel" in e.name) / 1e6
@@ -536,6 +624,25 @@ def phase_rdfize(beds, kernel_mods):
             + ", ".join(f"{k} {v:.4f} s" for k, v in per.items())
             + f", other device work {busy - sum(per.values()):.4f} s")
     return totals
+
+
+def check_paper_tier(beds, kind, path, result, out, digests) -> None:
+    """A 1M output: no duplicate line, per-predicate counts equal to numpy's
+    distinct pairs, and the optimized eager run's sorted lines."""
+    tb, d, _ = beds[(kind, ROWS_PAPER)]
+    with open(out, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    check(len(lines) == result.n_triples, f"{tb.name} {path}: line count")
+    check(len(set(lines)) == len(lines), f"{tb.name} {path}: duplicate N-Triples lines")
+    want = expected_triples(tb, d)
+    got = {p: st.n_unique for p, st in result.stats.items()}
+    check(got == want, f"{tb.name} {path}: triples per predicate {got} != numpy {want}")
+    digest = sorted_digest(lines)
+    ref = digests.setdefault(kind, digest)  # the optimized run comes first
+    check(digest == ref, f"{tb.name} {path}: sorted lines differ from the optimized run's")
+    log(f"{tb.name} {path}: {len(lines)} distinct lines; per-predicate counts equal "
+        f"numpy's distinct pairs from the CSV: {want}; sorted-lines sha256 {digest[:16]} "
+        "equals the optimized eager run's")
 
 
 def main() -> int:
@@ -554,7 +661,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     try:
-        from repro_torch.kernels import bucket_dedup, hash_mix
+        from repro_torch.kernels import bucket_dedup, hash_mix, nested_join
 
         log("phase 1: device and toolchain")
         smi, rates = phase_device()
@@ -564,8 +671,8 @@ def main() -> int:
         beds = make_testbeds()
         log("phase 4: kernels against their plain versions on the card")
         kres = phase_kernels(beds, rates)
-        log("phase 5: rdfize on the card (and the 100K tier on the CPU)")
-        mods = {"hash_mix": hash_mix, "bucket_dedup": bucket_dedup}
+        log("phase 5: rdfize on the card (and the small tier on the CPU)")
+        mods = {"hash_mix": hash_mix, "bucket_dedup": bucket_dedup, "nested_join": nested_join}
         launches = phase_rdfize(beds, mods)
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()
@@ -578,6 +685,8 @@ def main() -> int:
         "hash_mix": ("src/repro_torch/csrc/hash_mix.cu", "src/repro/kernels/hash_mix.py:29"),
         "bucket_dedup": ("src/repro_torch/csrc/bucket_dedup.cu",
                          "src/repro/kernels/bucket_dedup.py:43"),
+        "nested_join": ("src/repro_torch/csrc/nested_join.cu",
+                        "src/repro/kernels/nested_join.py:59"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,10 +1,10 @@
 """Carry state between the JAX package and the port.
 
 Each function takes numpy arrays (``np.asarray`` of a JAX ``HashSet``,
-``RadixTable`` or ``PJTTSorted`` field) and returns the port's structure
-with tensors on ``device``.  uint32 words become int32 tensors with the same
-bits; ``u32_numpy`` goes back.  This lets an insert that one package began
-continue in the other.
+``RadixTable``, ``PJTTSorted`` or ``PJTTHash`` field) and returns the
+port's structure with tensors on ``device``.  uint32 words become int32
+tensors with the same bits; ``u32_numpy`` goes back.  This lets an insert
+that one package began continue in the other.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashset import HashSet
-from repro_torch.core.pjtt import PJTTSorted
+from repro_torch.core.pjtt import PJTTHash, PJTTSorted
 from repro_torch.kernels.ops import RadixTable
 
 
@@ -42,8 +42,16 @@ def radix_table_from_numpy(hi, lo, device="cuda") -> RadixTable:
     return RadixTable(hi=hi, lo=lo)
 
 
+def _i32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, dtype=np.int32).copy()).to(device)
+
+
 def pjtt_sorted_from_numpy(skeys, ssubj, device="cuda") -> PJTTSorted:
-    return PJTTSorted(
-        skeys=torch.from_numpy(np.asarray(skeys, dtype=np.int32).copy()).to(device),
-        ssubj=torch.from_numpy(np.asarray(ssubj, dtype=np.int32).copy()).to(device),
+    return PJTTSorted(skeys=_i32(skeys, device), ssubj=_i32(ssubj, device))
+
+
+def pjtt_hash_from_numpy(tkey, tstart, tcount, ssubj, device="cuda") -> PJTTHash:
+    return PJTTHash(
+        tkey=_i32(tkey, device), tstart=_i32(tstart, device),
+        tcount=_i32(tcount, device), ssubj=_i32(ssubj, device),
     )

@@ -1,9 +1,11 @@
-"""Sort-based duplicate elimination over 64-bit keys, in plain PyTorch.
+"""Naive operator pieces — the paper's SDM-RDFizer⁻ baseline.
 
-The counterpart of ``sort_dedup`` and ``sort_dedup_masked`` in
-``repro.core.naive``.  The radix PTT insert uses them as its map-side
-combiner (``kernels.ops.radix_dedup_insert``).  The nested-loop join of the
-naive engine arrives with that engine.
+The counterpart of ``repro.core.naive``: sort-based duplicate elimination
+over 64-bit keys (``sort_dedup``, ``sort_dedup_masked``), which the naive
+engine runs once per predicate and the radix PTT insert uses as its
+map-side combiner (``kernels.ops.radix_dedup_insert``), and the nested-loop
+join of the naive OJM (``nested_loop_join``), which is the ``nested_join``
+kernel on the card and its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.hashing import EMPTY
+from repro_torch.kernels import nested_join as _join
 
 
 class SortDedupResult(NamedTuple):
@@ -52,3 +55,27 @@ def sort_dedup_masked(
     res = sort_dedup(h, l)
     uniq = res.uniq_mask & valid
     return SortDedupResult(uniq_mask=uniq, n_unique=uniq.sum().to(torch.int32))
+
+
+class NestedJoinResult(NamedTuple):
+    subjects: torch.Tensor   # int32[m, max_matches]
+    valid: torch.Tensor      # bool[m, max_matches]
+    truncated: torch.Tensor  # bool[]
+    # the paper's |N_parent| x |N_child| cost term is derived from the input
+    # sizes by the caller
+
+
+def nested_loop_join(
+    parent_keys: torch.Tensor,
+    parent_subjects: torch.Tensor,
+    child_keys: torch.Tensor,
+    max_matches: int,
+) -> NestedJoinResult:
+    """All-pairs equality join (|N_parent| x |N_child| comparisons).  Output
+    layout matches ``pjtt.ProbeResult``, so the two paths are drop-in
+    interchangeable in the executor.  On the card this is the
+    ``nested_join`` kernel; on the CPU its plain version, blocked over child
+    rows to bound the comparison matrix."""
+    return NestedJoinResult(
+        *_join.nested_join(parent_keys, parent_subjects, child_keys, max_matches)
+    )

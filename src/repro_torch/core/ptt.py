@@ -63,6 +63,16 @@ def insert_triples(
     """Probe+insert a batch of candidate triples; ``is_new`` marks the ones
     that must be emitted to the knowledge graph (the paper's PTT check).
     The table is updated in place."""
+    hi, lo = triple_keys(subj_tmpl, subj_vals, pred_id, obj_tmpl, obj_vals)
+    if valid is None:
+        valid = torch.ones(hi.shape[0], dtype=torch.bool, device=hi.device)
+    table, is_new, ovf = ops.radix_dedup_insert(ptt.table, hi, lo, valid)
+    return TripleInsertResult(ptt=PTT(table), is_new=is_new, overflowed=ovf)
+
+
+def triple_keys(subj_tmpl, subj_vals: torch.Tensor, pred_id, obj_tmpl, obj_vals):
+    """``hashing.triple_key`` through the ``hash_mix`` kernel: the 64-bit
+    key of each candidate triple, as an int32 (hi, lo) pair."""
     n = subj_vals.shape[0]
     dev = subj_vals.device
 
@@ -73,11 +83,7 @@ def insert_triples(
 
     words = torch.stack([row(subj_tmpl), row(subj_vals), row(pred_id),
                          row(obj_tmpl), row(obj_vals)])
-    hi, lo = ops.fused_hash_mix(words)
-    if valid is None:
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
-    table, is_new, ovf = ops.radix_dedup_insert(ptt.table, hi, lo, valid)
-    return TripleInsertResult(ptt=PTT(table), is_new=is_new, overflowed=ovf)
+    return ops.fused_hash_mix(words)
 
 
 def distinct_count(ptt: PTT) -> torch.Tensor:

@@ -4,6 +4,8 @@
 * ``bucket_dedup`` — radix-partitioned open-addressing dedup-insert: each
   partition's table slice lives in one CTA's shared memory for the whole
   probe/claim loop.
+* ``nested_join``  — the naive engine's all-pairs equality join: one thread
+  per child row, parent tiles streamed through shared memory.
 
 Each kernel module holds the wrapper (kernel for a CUDA tensor, plain
 PyTorch version for a CPU tensor) and a ``launches`` counter; ``ops.py``

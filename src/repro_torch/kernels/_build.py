@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("hash_mix", "bucket_dedup")
+KERNELS = ("hash_mix", "bucket_dedup", "nested_join")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,9 +89,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "hash_mix":
         lib.hash_mix_launch.argtypes = [P, I, LL, ULL, P, P, P, I]
         lib.hash_mix_launch.restype = I
-    else:
+    elif name == "bucket_dedup":
         lib.bucket_dedup_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, P, I]
         lib.bucket_dedup_launch.restype = I
+    else:
+        lib.nested_join_launch.argtypes = [P, P, P, LL, LL, I, P, P, P, I]
+        lib.nested_join_launch.restype = I
 
 
 def load_all() -> dict[str, ctypes.CDLL]:

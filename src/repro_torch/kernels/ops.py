@@ -18,6 +18,7 @@ from repro_torch.core import hashing, naive
 from repro_torch.core.hashing import EMPTY
 from repro_torch.kernels import bucket_dedup as _bucket
 from repro_torch.kernels import hash_mix as _mix
+from repro_torch.kernels import nested_join as _join
 
 PART_SLACK = 4
 
@@ -129,3 +130,9 @@ def bin_lanes(key_hi, key_lo, valid, n_parts: int) -> Bins:
 def fused_hash_mix(words: torch.Tensor, salt: int = 0):
     """words int32[W, n] -> (hi, lo) int32[n] via the hash_mix kernel."""
     return _mix.hash_mix(words, salt=salt)
+
+
+def blocked_nested_join(parent_keys, parent_subjects, child_keys, max_matches: int):
+    """The naive-baseline join through the nested_join kernel ->
+    (subjects int32[m, K], valid bool[m, K], truncated bool[])."""
+    return _join.nested_join(parent_keys, parent_subjects, child_keys, max_matches)

@@ -2,16 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.rdfize \
         --mapping mappings.ttl --data-root data/ --out kg.nt \
-        [--device cuda|cpu] [--explain-mapping] [--no-mapping-plan] \
+        [--device cuda|cpu] [--engine optimized|naive] [--join sorted|hash] \
+        [--stream] [--block-rows N] [--explain-mapping] [--no-mapping-plan] \
         [--trace OUT.json]
 
 The same flags as ``repro.launch.rdfize`` plus ``--device`` (default
 ``cuda``; a host without a card fails rather than falling back).  It runs
-the eager optimized engine with the sorted PJTT and writes N-Triples,
-byte-identical to the JAX package's CLI.  ``--stream``, ``--engine naive``,
-``--join hash``, ``--emit kgz``, ``--shards`` and the options that only
-modify them (``--block-rows``, ``--shard-workers``) arrive in slice 2 of
-the port and exit with an error naming it.
+the optimized engine (eager, or block-streamed with ``--stream``) or the
+naive engine, with the sorted or the hash PJTT, and writes N-Triples,
+byte-identical to the JAX package's CLI.  ``--emit kgz``, ``--shards`` and
+``--shard-workers`` are not ported yet and exit with an error naming the
+ROADMAP item that brings each.
 
 Mirrors the paper's tool: parse the RML document, plan, execute with the
 PTT/PJTT operators, emit N-Triples, print the per-predicate φ statistics.
@@ -23,7 +24,11 @@ import argparse
 import csv
 import os
 
-_LATER = "arrives in slice 2 of the PyTorch port (see ROADMAP.md); use repro.launch.rdfize"
+# options not ported yet -> the ROADMAP.md item (Queue 1) that brings each
+_NOT_PORTED = (
+    "is not ported yet: it arrives with ROADMAP.md Queue 1 item {item} ({what}); "
+    "use repro.launch.rdfize for it"
+)
 
 
 def _print_stats(stats) -> None:
@@ -71,9 +76,9 @@ def main(argv=None):
     ap.add_argument("--join", default="sorted", choices=("sorted", "hash"))
     ap.add_argument("--batch-size", type=int, default=1 << 16)
     ap.add_argument("--stream", action="store_true",
-                    help="block-streamed out-of-core ingestion")
-    ap.add_argument("--block-rows", type=int, default=None,
-                    help="rows per streamed block (with --stream; not ported yet)")
+                    help="block-streamed out-of-core ingestion (repro_torch.stream)")
+    ap.add_argument("--block-rows", type=int, default=1 << 14,
+                    help="rows per streamed block (with --stream)")
     ap.add_argument("--explain-mapping", action="store_true",
                     help="print the mapping planner's decisions (kept/"
                          "pruned columns, factored terms, rule groups) "
@@ -91,17 +96,13 @@ def main(argv=None):
                     help="record a Chrome trace-event JSON of the run")
     args = ap.parse_args(argv)
 
-    for asked, what in (
-        (args.stream, "--stream: the streamed engine"),
-        (args.block_rows is not None, "--block-rows: the streamed engine"),
-        (args.engine != "optimized", f"--engine {args.engine}: the naive engine"),
-        (args.join != "sorted", f"--join {args.join}: the hash PJTT"),
-        (args.emit != "nt", f"--emit {args.emit}: .kgz snapshots"),
-        (bool(args.shards), "--shards: sharded stores"),
-        (args.shard_workers is not None, "--shard-workers: sharded builds"),
+    for asked, flag, item, what in (
+        (args.emit != "nt", f"--emit {args.emit}", 10, ".kgz snapshots, kg/store.py"),
+        (bool(args.shards), "--shards", 11, "sharded ingest"),
+        (args.shard_workers is not None, "--shard-workers", 11, "sharded ingest"),
     ):
         if asked:
-            ap.error(f"{what} {_LATER}")
+            ap.error(f"{flag} " + _NOT_PORTED.format(item=item, what=what))
 
     from repro_torch import obs
     from repro_torch.core.executor import create_kg
@@ -127,11 +128,16 @@ def main(argv=None):
               f"{len(mplan.sources)} sources -> {len(mplan.groups)} "
               f"groups ({len(mplan.shared)} shared terms factored)")
 
-    with obs.span("create_kg", cat="rdfize", device=args.device):
+    with obs.span("create_kg", cat="rdfize", engine=args.engine,
+                  stream=args.stream, device=args.device):
         result = create_kg(
             doc,
             data_root=args.data_root,
+            engine=args.engine,
+            join_strategy=args.join,
             batch_size=args.batch_size,
+            stream=args.stream,
+            block_rows=args.block_rows,
             mapping_plan=mapping_plan,
             device=args.device,
         )

@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core import hashing, ptt
 from repro_torch.core.executor import create_kg
-from repro_torch.kernels import bucket_dedup, hash_mix, ops
+from repro_torch.kernels import bucket_dedup, hash_mix, nested_join, ops
 from repro_torch.rml import generator
 
 pytestmark = pytest.mark.gpu
@@ -80,6 +80,46 @@ def test_kernel_rejects_a_slice_too_big_for_shared_memory(dev):
     t = torch.zeros(1, 2 * bucket_dedup.SLICE, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         bucket_dedup.bucket_dedup(k, k, k.bool(), t, t.clone())
+
+
+@pytest.mark.parametrize("m,n,n_keys,K", [
+    (1, 1, 1, 1),           # one row, one parent
+    (255, 2047, 30, 1),     # K = 1, truncated; m and n below a CTA and a tile
+    (257, 2049, 30, 200),   # one past a CTA of rows and a tile of parents
+    (1000, 6000, 40, 90),   # several tiles; some rows truncated
+    (70_000, 33, 5, 16),    # many CTAs, a ragged single tile
+    (0, 100, 5, 4),         # no child rows
+    (100, 0, 5, 4),         # no parent rows
+])
+def test_nested_join_kernel_matches_plain(dev, m, n, n_keys, K):
+    rng = np.random.default_rng(m + n)
+    pk = torch.from_numpy(rng.integers(0, n_keys, size=n).astype(np.int32)).to(dev)
+    ps = torch.from_numpy(rng.integers(0, 10**6, size=n).astype(np.int32)).to(dev)
+    ck = torch.from_numpy(rng.integers(0, n_keys + 3, size=m).astype(np.int32)).to(dev)
+    before = nested_join.launches
+    got = nested_join.nested_join(pk, ps, ck, K)
+    assert nested_join.launches == before + (m > 0)
+    want = nested_join.nested_join_plain(pk, ps, ck, K)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if m and n:
+        spans = torch.bincount(pk.long(), minlength=n_keys + 3)[ck.long()]
+        assert bool(got[2]) == bool((spans > K).any())
+
+
+@pytest.mark.parametrize("kind,cfg", [
+    ("SOM", dict(engine="naive")), ("OJM", dict(engine="naive")),
+    ("OJM", dict(join_strategy="hash")),
+    ("SOM", dict(stream=True, block_rows=1000)), ("OJM", dict(stream=True, block_rows=1000)),
+])
+def test_slice_two_paths_on_card_match_cpu(dev, kind, cfg, tmp_path):
+    tb = generator.make_testbed(kind, 5000, 0.75, n_poms=2, seed=2)
+    tb.write(str(tmp_path))
+    nested_join.launches = 0
+    got = create_kg(tb.doc, data_root=str(tmp_path), device="cuda", **cfg)
+    assert (nested_join.launches > 0) == (cfg.get("engine") == "naive" and kind == "OJM")
+    want = create_kg(tb.doc, data_root=str(tmp_path), device="cpu", **cfg)
+    assert list(got.iter_ntriples()) == list(want.iter_ntriples())
 
 
 @pytest.mark.parametrize("kind", ["SOM", "OJM"])

@@ -1,8 +1,11 @@
-"""The port's eager engine and rdfize CLI against the JAX package.
+"""The port's eager engines and rdfize CLI against the JAX package.
 
 The written N-Triples must be byte-identical, unsorted (emission order
-follows the ``is_new`` lanes), over the paper's testbeds; the engine runs
-with ``device="cpu"``, where every kernel wrapper takes its plain version.
+follows the ``is_new`` lanes, or the naive engine's join lanes), over the
+paper's testbeds, for the optimized engine with either PJTT and for the
+naive engine; the engine runs with ``device="cpu"``, where every kernel
+wrapper takes its plain version.  The streamed engine is in
+``test_torch_stream.py``.
 Also here: the port imports nothing of JAX, the card is the default device
 and asking for it without one raises.
 """
@@ -19,7 +22,7 @@ from repro.launch import rdfize as jax_rdfize
 from repro.rml import generator, serializer
 from repro_torch.core import executor
 from repro_torch.core.executor import EngineConfig, create_kg
-from repro_torch.kernels import bucket_dedup, hash_mix
+from repro_torch.kernels import bucket_dedup, hash_mix, nested_join
 from repro_torch.launch import rdfize
 from repro_torch.rml import generator as torch_generator
 
@@ -76,6 +79,41 @@ def test_create_kg_ntriples_byte_identical(testbeds, tmp_path, kind, dup, n_poms
     assert _stats(got) == _stats(want)
 
 
+@pytest.mark.parametrize("kind,dup,n_poms", CASES)
+def test_naive_engine_ntriples_byte_identical(testbeds, tmp_path, kind, dup, n_poms):
+    *docs, d = testbeds[(kind, dup, n_poms)]
+    nested_join.launches = 0
+    want, got, wb, gb = _both(docs, d, tmp_path, engine="naive")
+    assert nested_join.launches == 0  # the CPU runs the plain join
+    assert gb == wb and got.n_triples == want.n_triples > 0
+    assert _stats(got) == _stats(want) and got.engine == "naive"
+    if kind == "OJM":
+        assert all(s.n_parent == s.n_child == N_ROWS for s in got.stats.values()
+                   if s.kind == "OJM")
+    optimized = create_kg(docs[1], data_root=str(d), device="cpu")
+    assert sorted(got.iter_ntriples()) == sorted(optimized.iter_ntriples())
+
+
+@pytest.mark.parametrize("dup", [0.25, 0.75])
+@pytest.mark.parametrize("n_poms", [1, 2])
+def test_hash_join_ntriples_byte_identical(testbeds, tmp_path, dup, n_poms):
+    *docs, d = testbeds[("OJM", dup, n_poms)]
+    want, got, wb, gb = _both(docs, d, tmp_path, join_strategy="hash")
+    assert gb == wb and _stats(got) == _stats(want)
+
+
+def test_naive_engine_planner_off_byte_identical(testbeds, tmp_path):
+    *docs, d = testbeds[("OJM", 0.75, 2)]
+    want, got, wb, gb = _both(docs, d, tmp_path, engine="naive", mapping_plan=False)
+    assert gb == wb and _stats(got) == _stats(want)
+
+
+def test_naive_engine_raises_when_the_join_is_truncated(testbeds):
+    *docs, d = testbeds[("OJM", 0.75, 1)]
+    with pytest.raises(RuntimeError, match="max_matches"):
+        create_kg(docs[1], data_root=str(d), device="cpu", engine="naive", max_matches=1)
+
+
 @pytest.mark.parametrize("kind", ["SOM", "ORM", "OJM"])
 def test_create_kg_planner_off_byte_identical(testbeds, tmp_path, kind):
     *docs, d = testbeds[(kind, 0.75, 2)]
@@ -129,22 +167,33 @@ def test_rdfize_explain_mapping_matches_jax(testbeds, monkeypatch, capsys):
     assert capsys.readouterr().out == want
 
 
-@pytest.mark.parametrize("flags", [["--stream"], ["--block-rows", "128"], ["--engine", "naive"],
-                                   ["--join", "hash"], ["--emit", "kgz"],
-                                   ["--emit", "kgz", "--shards", "2"], ["--shard-workers", "2"]])
-def test_rdfize_later_slice_flags_exit_with_an_error(testbeds, flags, capsys):
+@pytest.mark.parametrize("flags", [["--engine", "naive"], ["--join", "hash"],
+                                   ["--stream", "--block-rows", "700"]])
+def test_rdfize_cli_slice_two_flags_byte_identical(testbeds, tmp_path, monkeypatch,
+                                                    capsys, flags):
+    *_, d = testbeds[("OJM", 0.25, 2)]
+    common = ["--mapping", str(d / "map.ttl"), "--data-root", str(d)]
+    monkeypatch.setattr(sys, "argv", ["rdfize", *common, "--out",
+                                      str(tmp_path / "jax.nt"), *flags])
+    jax_rdfize.main()
+    result = rdfize.main([*common, "--out", str(tmp_path / "torch.nt"),
+                          "--device", "cpu", *flags])
+    assert (tmp_path / "torch.nt").read_bytes() == (tmp_path / "jax.nt").read_bytes()
+    assert result.n_triples > 0
+    engine = {"--engine": "naive", "--stream": "stream"}.get(flags[0], "optimized")
+    assert f"({engine} engine, cpu)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,item", [(["--emit", "kgz"], 10),
+                                        (["--emit", "kgz", "--shards", "2"], 10),
+                                        (["--shard-workers", "2"], 11)])
+def test_rdfize_later_slice_flags_exit_with_an_error(testbeds, flags, item, capsys):
     *_, d = testbeds[("SOM", 0.25, 1)]
     with pytest.raises(SystemExit) as e:
         rdfize.main(["--mapping", str(d / "map.ttl"), "--device", "cpu", *flags])
-    assert e.value.code == 2 and "slice 2" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("cfg", [dict(stream=True), dict(engine="naive"),
-                                 dict(join_strategy="hash")])
-def test_engine_later_slice_options_raise(testbeds, cfg):
-    _, doc, d = testbeds[("SOM", 0.25, 1)]
-    with pytest.raises(ValueError, match="slice 2"):
-        create_kg(doc, data_root=str(d), device="cpu", **cfg)
+    err = capsys.readouterr().err
+    assert e.value.code == 2 and f"ROADMAP.md Queue 1 item {item}" in err
+    assert "not ported yet" in err
 
 
 def test_the_card_is_the_default_device(testbeds, monkeypatch):
@@ -165,14 +214,17 @@ def test_the_card_is_the_default_device(testbeds, monkeypatch):
 def test_asking_for_cuda_without_a_card_raises(testbeds, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, doc, d = testbeds[("SOM", 0.25, 1)]
-    hash_mix.launches = bucket_dedup.launches = 0
+    hash_mix.launches = bucket_dedup.launches = nested_join.launches = 0
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_kg(doc, data_root=str(d))  # the default device
+    for cfg in (dict(engine="naive"), dict(stream=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_kg(doc, data_root=str(d), **cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rdfize.main(["--mapping", str(d / "map.ttl"), "--data-root", str(d),
                      "--out", str(tmp_path / "x.nt")])
     assert not (tmp_path / "x.nt").exists()
-    assert hash_mix.launches == bucket_dedup.launches == 0
+    assert hash_mix.launches == bucket_dedup.launches == nested_join.launches == 0
 
 
 def _imports(path: pathlib.Path) -> set[str]:
