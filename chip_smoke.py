@@ -9,7 +9,7 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   1. device and toolchain: the card's name and power limit, the torch,
      CUDA, nvcc and Triton versions;
-  2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+  2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      per source, started together) and time the build;
   3. make the paper's testbeds (SOM and OJM, two predicate-object maps,
      75% duplicates) at 100K and 1M rows, and an OJM one at 20K rows,
@@ -33,8 +33,26 @@ Phases, each of which makes the script exit non-zero when it fails:
      the CSV gives, and the same sorted lines as the optimized eager run; a
      profiled rerun of the optimized 1M runs and of the naive OJM 1M run
      gives the card's busy share over the whole run;
-  6. print the kernels line (one JSON object), the card line, and last the
-     result line ``{"ok": true, "device": {...}}``.
+  6. write ``.kgz`` stores with ``rdfize --emit kgz`` on the card at 100K and
+     1M rows (SOM and OJM); at 100K the card's bytes must equal a
+     ``--device cpu`` run's;
+  7. hold K4 (``scan_join``, the serving fast path) against its plain
+     version on the card, exactly, for the ``single`` and ``bgp3`` chains of
+     ``serve/bench.py`` at batch 1, 8 and 64 over the 1M stores, at the
+     capacities the executor converges to; time it like phase 4 and bound
+     it by the 32-byte sectors its searches touch, the gathered columns and
+     the outputs, and by its search compares and sort compare-exchanges;
+     print its chain of dependent loads;
+  8. serve the six ``serve/bench.py`` query classes at batch 1, 8, 64 and
+     4096: the card's rows must equal the CPU's over the 100K and the 1M
+     stores, and over the 100K stores a query a class must equal
+     ``oracle_select``'s; then ``serve.bench.bench_serve`` over the 1M
+     stores on the card (K4's launch count set to 0 just before, and above
+     0 just after, or the phase fails) prints queries/s and p50/p99
+     dispatch latency per class and batch, and the card's busy share in a
+     fast-path window and in general-path windows at batch 1 and 4096;
+  9. print the kernels line (one JSON object, all four kernels), the card
+     line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
 lives under ``build/chip_smoke/`` and is removed at the end.
@@ -69,6 +87,7 @@ N_POMS, DUP = 2, 0.75
 ROWS_SMALL, ROWS_PAPER = 100_000, 1_000_000  # the paper's 1M tier
 ROWS_NAIVE_CPU = 20_000  # the naive OJM on the CPU: 4e8 compares a map
 K3_SLICE = 65_536  # child rows of the 1M shape checked against the plain join
+CARD = "cuda"  # the device of the serving phases (6-8)
 
 
 def log(msg: str) -> None:
@@ -119,7 +138,7 @@ def device_ms(fn, kernel: str, setup=None, reps: int = 20):
     fn(setup() if setup else None)
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn(setup() if setup else None)
             torch.cuda.synchronize()
@@ -132,20 +151,47 @@ def device_ms(fn, kernel: str, setup=None, reps: int = 20):
     return statistics.median(times) / 1e3 if times else None
 
 
+def bare_ms(launch, n: int = 100) -> float:
+    """Device time of one launch by CUDA events around ``n`` back-to-back
+    bare launches (arguments built once, no other work between them), after
+    a warm-up: the kernel's time wherever enqueueing a launch takes less
+    than running it."""
+    import torch
+
+    for _ in range(5):
+        launch()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def timed(name, kernel, fn, plain, shape, nbytes, ops_ms, setup=None, reps=20,
-          plain_reps=5, plain_warmup=3, **extra) -> dict:
+          plain_reps=5, plain_warmup=3, bare=None, **extra) -> dict:
     """One kernels-line timing entry: the kernel's device time (``ms``,
-    profiler), the time of one wrapper call by CUDA events (``call_ms``,
-    host launch overhead included), the plain version's call time and the
-    bound: the larger of the bytes this input needs over the memory rate
-    (``bytes_ms``) and the operations it needs over the integer rates
-    (``ops_ms``)."""
+    profiler; where the profiler records no such kernel, CUDA events around
+    back-to-back ``bare`` launches, else around wrapper calls), the time of
+    one wrapper call by CUDA events (``call_ms``, host launch overhead
+    included), the plain version's call time and the bound: the larger of
+    the bytes this input needs over the memory rate (``bytes_ms``) and the
+    operations it needs over the integer rates (``ops_ms``)."""
     ms_dev = device_ms(fn, kernel, setup, reps=reps)
     call = cuda_ms(fn, setup, reps=reps)
+    if bare is not None:
+        extra["bare_ms"] = bare_ms(bare)
     plain_ms = cuda_ms(plain, setup, reps=plain_reps, warmup=plain_warmup)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    entry = dict(shape=shape, ms=ms_dev if ms_dev is not None else call,
-                 ms_by="profiler" if ms_dev is not None else "events", call_ms=call,
+    if ms_dev is not None:
+        ms, ms_by = ms_dev, "profiler"
+    elif bare is not None:
+        ms, ms_by = extra["bare_ms"], "events, back-to-back bare launches"
+    else:
+        ms, ms_by = call, "events"
+    entry = dict(shape=shape, ms=ms, ms_by=ms_by, call_ms=call,
                  plain_ms=plain_ms, bound_ms=max(t_bytes, ops_ms),
                  bound_by="bytes" if t_bytes >= ops_ms else "operations",
                  bytes=nbytes, bytes_ms=t_bytes, ops_ms=ops_ms, **extra)
@@ -645,6 +691,298 @@ def check_paper_tier(beds, kind, path, result, out, digests) -> None:
         "equals the optimized eager run's")
 
 
+# ------------------------------------------------------------------ serving
+
+SERVE_BATCHES = (1, 8, 64, 4096)
+K4_BATCHES = (1, 8, 64)
+K4_CLASSES = ("single", "bgp3")  # the chain classes the fast path takes
+OPS_PER_ROUND = 8  # K4: midpoint, clamp, two compares, the select of lo/hi
+OPS_PER_CX_COLUMN = 3  # K4's sort: compare, and a swap's two selects, a column
+
+
+def phase_kgz(beds, kernel_mods):
+    """``rdfize --emit kgz`` on the card at both tiers; at 100K the CPU's
+    bytes must equal the card's.  Returns the .kgz paths and the launches."""
+    from repro_torch.launch import rdfize
+
+    paths, totals = {}, {name: 0 for name in kernel_mods}
+    for n_rows in (ROWS_SMALL, ROWS_PAPER):
+        for kind in ("SOM", "OJM"):
+            tb, d, _ = beds[(kind, n_rows)]
+            out = {}
+            for device in (CARD, "cpu") if n_rows == ROWS_SMALL else (CARD,):
+                out[device] = os.path.join(d, f"kg-{device}-{len(out)}.kgz")
+                for mod in kernel_mods.values():
+                    mod.launches = 0
+                t0 = time.perf_counter()
+                rdfize.main(["--mapping", os.path.join(d, "map.ttl"), "--data-root", d,
+                             "--out", out[device], "--device", device, "--emit", "kgz"])
+                wall = time.perf_counter() - t0
+                with open(out[device], "rb") as f:
+                    digest = hashlib.sha256(f.read()).hexdigest()
+                counts = {name: mod.launches for name, mod in kernel_mods.items()}
+                log(f"rdfize --emit kgz {tb.name} on {device}: {wall:.3f} s end to end, "
+                    f"{os.path.getsize(out[device])} bytes, sha256 {digest[:16]}; "
+                    f"launches {counts}")
+                if device == CARD:
+                    for name in ("hash_mix", "bucket_dedup"):
+                        check(counts[name] > 0, f"{name} was never launched on --emit kgz")
+                    for name in totals:
+                        totals[name] += counts[name]
+            if n_rows == ROWS_SMALL:
+                with open(out[CARD], "rb") as f1, open(out["cpu"], "rb") as f2:
+                    check(f1.read() == f2.read(), f"{tb.name}: cuda and cpu .kgz differ")
+                log(f"{tb.name}: cuda and cpu .kgz are byte-identical")
+            paths[(kind, n_rows)] = out[CARD]
+    return paths, totals
+
+
+def open_stores(paths):
+    """Every .kgz on the card and on the CPU, through the open-store cache."""
+    from repro_torch.kg import persist
+
+    stores = {}
+    for (kind, n_rows), path in paths.items():
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            st = persist.open_store(path, device=CARD if device == "cuda" else "cpu")
+            stores[(kind, n_rows, device)] = st
+            log(f"opened {kind} {n_rows} on {device}: {st.n_triples} triples, "
+                f"{st.n_terms} terms, packed keys "
+                f"{st.device_keys('spo') is not None}, {time.perf_counter() - t0:.2f} s")
+    return stores
+
+
+def k4_work(spec, caps, operands, qbuf):
+    """What K4's function needs for this input, by replaying the plain
+    chain with its searches recorded: the distinct 32-byte sectors of
+    khi/klo (and prim_start) the search rounds read, the rounds run, the
+    gathered rows, and the sort's compare-exchanges (valid queries only).
+    A search is counted where its primary term is bound (>= 0); a wildcard
+    primary searches the whole index."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import scan_join as K
+
+    probes = {}  # id(khi) -> list of probed rows
+    prim_reads = {}
+    rounds = [0]
+    orig = K._reader_range
+
+    def recording(spec_, r, khi, klo, prim, lo_q, hi_q, primary_q):
+        res = orig(spec_, r, khi, klo, prim, lo_q, hi_q, primary_q)
+        for side, upper in ((lo_q, False), (hi_q, True)):
+            qhi, qlo = K.pack_bound(*side, spec_.key_bits)
+            if primary_q is None:
+                keep = torch.ones(qhi.shape, dtype=torch.bool, device=qhi.device)
+                lo = torch.zeros_like(qhi)
+                hi = torch.full_like(qhi, khi.shape[0])
+                n_rounds = spec_.rounds
+            else:
+                keep = primary_q >= 0
+                g0 = primary_q.clamp(0, max(prim.shape[0] - 2, 0))
+                lo, hi = prim[g0], prim[g0 + 1]
+                prim_reads.setdefault(id(prim), []).append(g0[keep].reshape(-1))
+                n_rounds = r.prim_rounds
+            lo, hi, qhi, qlo = (t[keep].reshape(-1) for t in (lo, hi, qhi, qlo))
+            for _ in range(n_rounds):
+                open_ = lo < hi
+                mid = lo + ((hi - lo) >> 1)
+                g = mid.clamp(0, max(khi.shape[0] - 1, 0))
+                probes.setdefault(id(khi), []).append(g[open_])
+                rounds[0] += int(open_.sum())
+                mhi, mlo = khi[g], klo[g]
+                tail = (mlo <= qlo) if upper else (mlo < qlo)
+                before = (mhi < qhi) | ((mhi == qhi) & tail)
+                lo, hi = (torch.where(open_ & before, mid + 1, lo),
+                          torch.where(open_ & ~before, mid, hi))
+        return res
+
+    R = len(spec.readers)
+    K._reader_range = recording
+    try:
+        outs, n, needed = K.chain_plain(
+            spec, caps, [tuple(operands[6 * i: 6 * i + 6]) for i in range(R)],
+            *K._unpack_qrows(spec, qbuf))
+    finally:
+        K._reader_range = orig
+    sectors = sum(len(torch.unique(torch.cat(v) // 8)) for v in probes.values())
+    sectors_prim = 0
+    for v in prim_reads.values():
+        g0 = torch.cat(v)
+        sectors_prim += len(torch.unique(torch.cat([g0, g0 + 1]) // 8))
+    valid_q = int((qbuf[:, 3 * R] != 0).sum())
+    cap = caps[-1]
+    L = int(np.log2(cap))
+    cx = valid_q * (cap // 2) * L * (L + 1) // 2 if spec.out_cols else 0
+    # gathered store columns: each stage's valid rows times the columns it binds
+    gathered = sum(int(needed[:, k].clamp(min=0, max=caps[k]).sum()) * len(r.out)
+                   for k, r in enumerate(spec.readers))
+    out_bytes = 4 * (len(outs) * qbuf.shape[0] * cap + qbuf.shape[0] * (1 + R))
+    nbytes = (qbuf.numel() * 4 + 2 * 32 * sectors + 32 * sectors_prim + 4 * gathered
+              + out_bytes)
+    return dict(sectors=sectors, prim_sectors=sectors_prim, rounds=rounds[0],
+                gathered=gathered, cx=cx, nbytes=nbytes,
+                ops=rounds[0] * OPS_PER_ROUND + cx * OPS_PER_CX_COLUMN * len(spec.out_cols))
+
+
+def phase_k4(stores, rates):
+    """K4 against its plain version on the card over the 1M stores: the
+    ``single`` and ``bgp3`` chains at batch 1, 8 and 64, at the capacities
+    the executor converges to.  Returns the kernels-line entry data."""
+    import torch
+
+    from repro_torch.kernels import scan_join as K
+    from repro_torch.serve import bench
+    from repro_torch.serve.exec import get_executor
+
+    err, entries = 0, []
+    for kind in ("SOM", "OJM"):
+        store = stores[(kind, ROWS_PAPER, "cuda")]
+        ex = get_executor(store)
+        p0, classes = bench._classes(store)
+        for name in K4_CLASSES:
+            qtext = dict(classes)[name]
+            for batch in K4_BATCHES:
+                plan, batches, fops = bench._encoded_batches(ex, qtext, p0, batch, 4, seed=1)
+                for consts in batches:  # converge the capacity floors
+                    ex.execute_encoded(plan, consts, fops)
+                fp = ex._fastpaths.get(plan.sig)
+                check(fp is not None, f"{kind} {name}: the plan is not a fast-path chain")
+                caps = tuple(fp.caps())
+                qbuf = fp.stage(batches[-1], None, batch).to(CARD)
+                got = K.scan_join(fp.spec, caps, *fp.operands, qbuf)
+                want = K.scan_join_plain(fp.spec, caps, *fp.operands, qbuf)
+                if CARD == "cuda":
+                    torch.cuda.synchronize()
+                e = max_abs_err([(got[1], want[1]), (got[2], want[2]), *zip(got[0], want[0])])
+                err = max(err, e)
+                R = len(fp.spec.readers)
+                chain = sum(fp.spec.rounds if r.src[0][0] == "w" else r.prim_rounds + 1
+                            for r in fp.spec.readers)
+                log(f"K4 scan_join {kind} 1M {name} batch {batch}: readers {R}, caps {caps}, "
+                    f"rows {int(got[1][:batch].sum())}, needed {got[2].tolist()}: "
+                    f"max_abs_err {e}")
+                check(e == 0, f"scan_join disagrees with its plain version ({kind} {name} "
+                      f"batch {batch})")
+                w = k4_work(fp.spec, caps, fp.operands, qbuf)
+                ops_ms = w["ops"] / (ALU_LANES * rates["sms"] * rates["clock_hz"]) * 1e3
+                launch = K.prepare_launch(fp.spec, caps, *fp.operands, qbuf)[0]
+                entries.append(timed(
+                    "K4", "scan_join_kernel",
+                    lambda _, fp=fp, caps=caps, qbuf=qbuf: K.scan_join(
+                        fp.spec, caps, *fp.operands, qbuf),
+                    lambda _, fp=fp, caps=caps, qbuf=qbuf: K.scan_join_plain(
+                        fp.spec, caps, *fp.operands, qbuf),
+                    f"{kind} 1M {name}: B={qbuf.shape[0]},R={R},caps={list(caps)}",
+                    nbytes=w["nbytes"], ops_ms=ops_ms, plain_reps=10, reps=50, bare=launch,
+                    dependent_loads=chain, search_rounds=w["rounds"],
+                    key_sectors=w["sectors"], prim_sectors=w["prim_sectors"],
+                    gathered=w["gathered"], sort_cx=w["cx"]))
+    return dict(err=err, timings=entries)
+
+
+def _results_equal(a, b, batch) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(a.counts, b.counts)) and all(
+        a.ids(i) == b.ids(i) for i in range(batch))
+
+
+def phase_serve(stores):
+    """The six query classes at batch 1, 8, 64 and 4096: rows across
+    devices and against the oracle, then the 1M stores' throughput and
+    latency on the card with K4's launches counted.  Returns K4's launches
+    in the 1M serving run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import scan_join as K
+    from repro_torch.serve import bench, oracle_select, parse_select
+    from repro_torch.serve.exec import get_executor
+
+    # rows: the card against the CPU at both tiers, a sample against the oracle
+    for n_rows in (ROWS_SMALL, ROWS_PAPER):
+        for kind in ("SOM", "OJM"):
+            gpu, cpu = (stores[(kind, n_rows, d)] for d in ("cuda", "cpu"))
+            p0, classes = bench._classes(gpu)
+            check((p0, classes) == bench._classes(cpu), "classes differ across devices")
+            for name, qtext in classes:
+                for batch in SERVE_BATCHES:
+                    res = {}
+                    for d, st in (("cuda", gpu), ("cpu", cpu)):
+                        ex = get_executor(st)
+                        plan, batches, fops = bench._encoded_batches(ex, qtext, p0, batch, 1, 2)
+                        res[d] = ex.execute_encoded(plan, batches[0], fops)
+                    check(_results_equal(res["cuda"], res["cpu"], batch),
+                          f"{kind} {n_rows} {name} batch {batch}: card and CPU rows differ")
+                if n_rows == ROWS_SMALL:
+                    q = parse_select(qtext)
+                    got = get_executor(gpu).solve(q).rows(0)
+                    check(got == oracle_select(cpu, q),
+                          f"{kind} 100K {name}: rows differ from oracle_select")
+            log(f"{kind} {n_rows}: rows of every class at batch {SERVE_BATCHES} equal on the "
+                f"card and the CPU" + (", and oracle_select's for one query a class"
+                                       if n_rows == ROWS_SMALL else ""))
+
+    # throughput and latency over the 1M stores on the card: serve/bench.py's
+    # own loop (per-dispatch latency histograms), every class at batch 1, 8,
+    # 64 and 4096, and its small-batch section (single and bgp3, batch 1-64)
+    K.launches = 0
+    for kind in ("SOM", "OJM"):
+        report = bench.bench_serve(stores[(kind, ROWS_PAPER, "cuda")],
+                                   batch_sizes=SERVE_BATCHES, target_queries=1 << 15)
+        for section in ("classes", "smallbatch"):
+            for name, cls in report[section].items():
+                for batch, r in cls["batches"].items():
+                    fast = (f", {r['fastpath_dispatches']} through the fast path"
+                            if "fastpath_dispatches" in r else "")
+                    log(f"serve {kind} 1M {section} {name} batch {batch}: "
+                        f"{r['queries_per_s']:.1f} queries/s, p50 {r['latency_p50_ms']:.4f} ms, "
+                        f"p99 {r['latency_p99_ms']:.4f} ms per dispatch "
+                        f"({r['n_batches']} dispatches{fast})")
+    launches = K.launches
+    log(f"K4 launches during the 1M serving run: {launches}")
+    check(launches > 0, "scan_join was never launched on the serving path at batch <= 64")
+
+    # the card's busy share in steady windows: the fast path, and the general
+    # path at batch 1 and at its largest batch.  A window whose profile holds
+    # no device event at all is run again, at most three times.
+    for kind, name, batch in (("OJM", "bgp3", 64), ("OJM", "union", 1),
+                              ("OJM", "union", 4096)):
+        store = stores[(kind, ROWS_PAPER, "cuda")]
+        ex = get_executor(store)
+        p0, classes = bench._classes(store)
+        plan, batches, fops = bench._encoded_batches(ex, dict(classes)[name], p0, batch,
+                                                     8 if batch == 4096 else 32, 4)
+        ex.execute_encoded(plan, batches[0], fops)
+        dev = []
+        for _ in range(3):
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for consts in batches:
+                        ex.execute_encoded(plan, consts, fops)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+            except Exception as e:  # a measurement the card could not give
+                log(f"  torch.profiler failed ({type(e).__name__}: {e})")
+            if dev:
+                break
+        if not dev:
+            log(f"serve {kind} {name} batch {batch}: device busy share not measured")
+            continue
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+        k4 = sum(e.time_range.elapsed_us() for e in dev if "scan_join" in e.name) / 1e6
+        log(f"serve {kind} 1M {name} batch {batch}, {len(batches)} dispatches: device busy "
+            f"{busy:.6f} s of {wall:.6f} s wall ({100 * busy / wall:.3f}%), {len(dev)} "
+            f"device events ({len(dev) / len(batches):.0f} a dispatch), K4 {k4:.6f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -674,6 +1012,15 @@ def main() -> int:
         log("phase 5: rdfize on the card (and the small tier on the CPU)")
         mods = {"hash_mix": hash_mix, "bucket_dedup": bucket_dedup, "nested_join": nested_join}
         launches = phase_rdfize(beds, mods)
+        log("phase 6: rdfize --emit kgz on the card (and the small tier on the CPU)")
+        paths, kgz_launches = phase_kgz(beds, mods)
+        for name, n in kgz_launches.items():
+            launches[name] += n
+        stores = open_stores(paths)
+        log("phase 7: K4 against its plain version on the card")
+        kres["scan_join"] = phase_k4(stores, rates)
+        log("phase 8: serving the bench classes on the card")
+        launches["scan_join"] = phase_serve(stores)
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()
         log(f"FAIL: {type(e).__name__}: {e}")
@@ -687,6 +1034,8 @@ def main() -> int:
                          "src/repro/kernels/bucket_dedup.py:43"),
         "nested_join": ("src/repro_torch/csrc/nested_join.cu",
                         "src/repro/kernels/nested_join.py:59"),
+        "scan_join": ("src/repro_torch/csrc/scan_join.cu",
+                      "src/repro/kernels/scan_join.py:309"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -4,7 +4,8 @@ Each function takes numpy arrays (``np.asarray`` of a JAX ``HashSet``,
 ``RadixTable``, ``PJTTSorted`` or ``PJTTHash`` field) and returns the
 port's structure with tensors on ``device``.  uint32 words become int32
 tensors with the same bits; ``u32_numpy`` goes back.  This lets an insert
-that one package began continue in the other.
+that one package began continue in the other; ``store_from_arrays`` holds
+both packages on one triple store without going through a file.
 """
 
 from __future__ import annotations
@@ -55,3 +56,25 @@ def pjtt_hash_from_numpy(tkey, tstart, tcount, ssubj, device="cuda") -> PJTTHash
         tkey=_i32(tkey, device), tstart=_i32(tstart, device),
         tcount=_i32(tcount, device), ssubj=_i32(ssubj, device),
     )
+
+
+def store_from_arrays(strings, term_pat, term_val, s, p, o, perms, cols=None,
+                      device="cuda"):
+    """A JAX ``TripleStore``'s numpy fields -> the port's ``TripleStore`` on
+    ``device``: the dictionary's strings (``Dictionary.strings()``), the
+    term tables, the ``s``/``p``/``o`` columns and each index's ``perm``
+    (and, to check them, its ``cols``) by order name."""
+    from repro_torch.data.encoder import Dictionary
+    from repro_torch.kg.store import TripleStore
+
+    store = TripleStore.build(
+        Dictionary.from_strings(list(strings)), term_pat, term_val, s, p, o,
+        perms={k: np.asarray(v, np.int32) for k, v in perms.items()},
+        device=device,
+    )
+    for order, want in (cols or {}).items():
+        got = store.indexes[order].cols
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise ValueError(f"index {order}: columns disagree with s, p, o "
+                             "gathered by its permutation")
+    return store

@@ -169,6 +169,14 @@ class KGResult:
                 n += 1
         return n
 
+    def to_store(self, device="cuda"):
+        """Servable form: a queryable, persistable
+        ``repro_torch.kg.TripleStore`` built array-at-a-time over these
+        int32 columns, its index sorts on ``device``."""
+        from repro_torch.kg.store import TripleStore
+
+        return TripleStore.from_kg(self.dictionary, self.triples, device=device)
+
 
 def _plan_gauges(mplan) -> None:
     """Publish the mapping plan's shape into ``repro_torch.obs`` (plan.*

@@ -6,6 +6,9 @@
   probe/claim loop.
 * ``nested_join``  — the naive engine's all-pairs equality join: one thread
   per child row, parent tiles streamed through shared memory.
+* ``scan_join``    — the serving fast path's fused scan-join chain: one
+  block per query (seeded split-key range searches, bind-join expansion,
+  a bitonic sort over every output column).
 
 Each kernel module holds the wrapper (kernel for a CUDA tensor, plain
 PyTorch version for a CPU tensor) and a ``launches`` counter; ``ops.py``

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("hash_mix", "bucket_dedup", "nested_join")
+KERNELS = ("hash_mix", "bucket_dedup", "nested_join", "scan_join")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -92,9 +92,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "bucket_dedup":
         lib.bucket_dedup_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, P, I]
         lib.bucket_dedup_launch.restype = I
-    else:
+    elif name == "nested_join":
         lib.nested_join_launch.argtypes = [P, P, P, LL, LL, I, P, P, P, I]
         lib.nested_join_launch.restype = I
+    else:
+        lib.scan_join_launch.argtypes = [
+            ctypes.POINTER(ULL), I, ctypes.POINTER(I), I, I, LL, P, I]
+        lib.scan_join_launch.restype = I
 
 
 def load_all() -> dict[str, ctypes.CDLL]:

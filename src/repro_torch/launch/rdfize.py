@@ -3,16 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.rdfize \
         --mapping mappings.ttl --data-root data/ --out kg.nt \
         [--device cuda|cpu] [--engine optimized|naive] [--join sorted|hash] \
-        [--stream] [--block-rows N] [--explain-mapping] [--no-mapping-plan] \
-        [--trace OUT.json]
+        [--stream] [--block-rows N] [--emit nt|kgz] [--explain-mapping] \
+        [--no-mapping-plan] [--trace OUT.json]
 
 The same flags as ``repro.launch.rdfize`` plus ``--device`` (default
 ``cuda``; a host without a card fails rather than falling back).  It runs
 the optimized engine (eager, or block-streamed with ``--stream``) or the
-naive engine, with the sorted or the hash PJTT, and writes N-Triples,
-byte-identical to the JAX package's CLI.  ``--emit kgz``, ``--shards`` and
-``--shard-workers`` are not ported yet and exit with an error naming the
-ROADMAP item that brings each.
+naive engine, with the sorted or the hash PJTT, and writes N-Triples or
+(``--emit kgz``) a queryable ``.kgz`` store, byte-identical to the JAX
+package's CLI.  ``--shards`` and ``--shard-workers`` are not ported yet and
+exit with an error naming the ROADMAP item that brings them.
 
 Mirrors the paper's tool: parse the RML document, plan, execute with the
 PTT/PJTT operators, emit N-Triples, print the per-predicate φ statistics.
@@ -21,10 +21,8 @@ PTT/PJTT operators, emit N-Triples, print the per-predicate φ statistics.
 from __future__ import annotations
 
 import argparse
-import csv
-import os
 
-# options not ported yet -> the ROADMAP.md item (Queue 1) that brings each
+# options not ported yet: the ROADMAP.md item (Queue 1) that brings them
 _NOT_PORTED = (
     "is not ported yet: it arrives with ROADMAP.md Queue 1 item {item} ({what}); "
     "use repro.launch.rdfize for it"
@@ -41,35 +39,12 @@ def _print_stats(stats) -> None:
         )
 
 
-def _peek_schemas(plan, data_root: str) -> dict[str, tuple[str, ...]]:
-    """Header peek for fixed-schema CSV/TSV sources on disk, so the explain
-    tree can show *pruned* columns, not just kept ones.  Sources that are
-    missing, globbed, or schemaless (JSON) are omitted."""
-    from repro_torch.rml.model import parse_source_key
-    from repro_torch.rml.plan import is_sharded_path
-
-    schemas: dict[str, tuple[str, ...]] = {}
-    for skey in plan.sources:
-        fmt, path, _ = parse_source_key(skey)
-        if fmt not in ("csv", "tsv") or is_sharded_path(path):
-            continue
-        full = path if os.path.isabs(path) else os.path.join(data_root, path)
-        if not os.path.exists(full):
-            continue
-        with open(full, newline="", encoding="utf-8") as f:
-            delim = "\t" if fmt == "tsv" else ","
-            header = next(csv.reader(f, delimiter=delim), None)
-        if header:
-            schemas[skey] = tuple(header)
-    return schemas
-
-
 def main(argv=None):
     """Run the CLI; returns the ``KGResult`` (None for --explain-mapping)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.rdfize")
     ap.add_argument("--mapping", required=True)
     ap.add_argument("--data-root", default=".")
-    ap.add_argument("--out", default=None, help="N-Triples output path")
+    ap.add_argument("--out", default=None, help="output path (N-Triples or .kgz)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the engine's device steps run (no fallback)")
     ap.add_argument("--engine", default="optimized", choices=("optimized", "naive"))
@@ -87,7 +62,8 @@ def main(argv=None):
                     help="disable the mapping-level planner (single flat "
                          "rule group)")
     ap.add_argument("--emit", default="nt", choices=("nt", "kgz"),
-                    help="output format (N-Triples; kgz is not ported yet)")
+                    help="output format: N-Triples text or a queryable .kgz "
+                         "snapshot (repro_torch.kg)")
     ap.add_argument("--shards", type=int, default=0, metavar="N",
                     help="sharded .kgz output (not ported yet)")
     ap.add_argument("--shard-workers", type=int, default=None, metavar="M",
@@ -96,23 +72,19 @@ def main(argv=None):
                     help="record a Chrome trace-event JSON of the run")
     args = ap.parse_args(argv)
 
-    for asked, flag, item, what in (
-        (args.emit != "nt", f"--emit {args.emit}", 10, ".kgz snapshots, kg/store.py"),
-        (bool(args.shards), "--shards", 11, "sharded ingest"),
-        (args.shard_workers is not None, "--shard-workers", 11, "sharded ingest"),
-    ):
+    for asked, flag in ((bool(args.shards), "--shards"),
+                        (args.shard_workers is not None, "--shard-workers")):
         if asked:
-            ap.error(f"{flag} " + _NOT_PORTED.format(item=item, what=what))
+            ap.error(f"{flag} " + _NOT_PORTED.format(item=11, what="sharded ingest"))
 
     from repro_torch import obs
     from repro_torch.core.executor import create_kg
     from repro_torch.rml import parser
 
     if args.explain_mapping:
-        from repro_torch.rml.plan import build_plan, render_explain
+        from repro_torch import api
 
-        plan = build_plan(parser.parse_file(args.mapping))
-        print(render_explain(plan, schemas=_peek_schemas(plan, args.data_root)))
+        print(api.explain_mapping(args.mapping, data_root=args.data_root))
         return None
     if args.trace:
         obs.enable_tracing()
@@ -144,7 +116,15 @@ def main(argv=None):
     print(f"[rdfize] {result.n_triples} unique triples in "
           f"{result.wall_time_s:.2f}s ({result.engine} engine, {args.device})")
     _print_stats(result.stats)
-    if args.out:
+    if args.out and args.emit == "kgz":
+        from repro_torch.kg import persist
+
+        with obs.span("emit_kgz", cat="rdfize", out=args.out):
+            store = result.to_store(device=args.device)
+            persist.save(store, args.out)
+        print(f"[rdfize] wrote {store.n_triples}-triple .kgz snapshot "
+              f"({store.n_terms} terms) to {args.out}")
+    elif args.out:
         with obs.span("emit_nt", cat="rdfize", out=args.out):
             n = result.write_ntriples(args.out)
         print(f"[rdfize] wrote {n} triples to {args.out}")

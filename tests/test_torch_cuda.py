@@ -14,7 +14,14 @@ import torch
 from repro_torch.core import hashing, ptt
 from repro_torch.core.executor import create_kg
 from repro_torch.kernels import bucket_dedup, hash_mix, nested_join, ops
+from repro_torch.kernels import scan_join as K
+from repro_torch.kg import persist
+from repro_torch.kg.store import TripleStore
 from repro_torch.rml import generator
+from repro_torch.serve import bench as serve_bench
+from repro_torch.serve import fastpath as FP
+from repro_torch.serve import parse_select
+from repro_torch.serve.exec import get_executor
 
 pytestmark = pytest.mark.gpu
 
@@ -131,3 +138,98 @@ def test_engine_on_card_matches_cpu(dev, kind, tmp_path):
     assert hash_mix.launches > 0 and bucket_dedup.launches > 0
     want = create_kg(tb.doc, data_root=str(tmp_path), device="cpu")
     assert list(got.iter_ntriples()) == list(want.iter_ntriples())
+
+
+def _chain_store(device):
+    """A rare anchor p0 over 7 subjects and common p1/p2: 1-, 2- and
+    3-reader chains (as in ``test_torch_scan_join.py``)."""
+    t = [(f"<http://ex/s{i}>", "<http://ex/p1>", f'"v{i % 7}"') for i in range(300)]
+    t += [(f"<http://ex/s{i}>", "<http://ex/p1>", f'"w{i % 3}"') for i in range(0, 300, 4)]
+    t += [(f"<http://ex/s{i}>", "<http://ex/p2>", f"<http://ex/o{i % 5}>")
+          for i in range(300)]
+    t += [(f"<http://ex/s{i}>", "<http://ex/p0>", '"anchor"') for i in range(0, 35, 5)]
+    return TripleStore.from_ntriples(sorted(set(t)), device=device)
+
+
+CHAINS = [
+    "SELECT * WHERE { ?s <http://ex/p1> ?o }",
+    "SELECT * WHERE { ?s ?p ?o }",
+    "SELECT * WHERE { ?s <http://ex/p0> ?a . ?s <http://ex/p1> ?b }",
+    "SELECT ?s ?b ?c ?z WHERE { ?s <http://ex/p0> ?a . ?s <http://ex/p1> ?b . "
+    "?s <http://ex/p2> ?c }",
+]
+
+
+@pytest.mark.parametrize("text", CHAINS)
+@pytest.mark.parametrize("caps_scale", [0, 1, 8])
+@pytest.mark.parametrize("bsz", [1, 5, 64])
+def test_scan_join_kernel_matches_plain(dev, text, caps_scale, bsz):
+    store = _chain_store(dev)
+    ex = get_executor(store)
+    fp = FP.build(ex, ex.plan(parse_select(text)))
+    assert fp is not None
+    R = len(fp.spec.readers)
+    caps = tuple(2 if caps_scale == 0 else 1 << (9 + caps_scale // 8) for _ in range(R))
+    rng = np.random.default_rng(bsz * 10 + caps_scale)
+    q = np.zeros((bsz, K.qrow_width(R)), np.int32)
+    from repro_torch.serve import plan as P
+
+    rep = P.encode_scan_consts(store, ex.plan(parse_select(text)), parse_select(text))
+    for i in range(bsz):
+        c = rep.copy()
+        if c[0, 2] >= 0:
+            c[0, 2] = [int(rng.integers(0, store.n_terms)), -2, int(rep[0, 2])][i % 3]
+        q[i, : 3 * R] = c.reshape(-1)
+        q[i, 3 * R] = 0 if i % 7 == 6 else 1
+        q[i, 3 * R + 1] = [-1, -1, 0, 2][i % 4]
+    qd = torch.from_numpy(q).to(dev)
+    before = K.launches
+    got = K.scan_join(fp.spec, caps, *fp.operands, qd)
+    assert K.launches == before + 1
+    want = K.scan_join_plain(fp.spec, caps, *fp.operands, qd)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+
+
+def test_fastpath_on_card_matches_cpu(dev):
+    gpu, cpu = _chain_store(dev), _chain_store("cpu")
+    for text in CHAINS:
+        q = parse_select(text)
+        for bsz in (1, 8, 64):
+            before = K.launches
+            g = get_executor(gpu)
+            got = g.execute(g.plan(q), [q] * bsz)
+            assert K.launches > before  # the card's fast path is the kernel
+            c = get_executor(cpu)
+            want = c.execute(c.plan(q), [q] * bsz)
+            assert np.array_equal(got.counts, want.counts)
+            for i in range(bsz):
+                assert got.ids(i) == want.ids(i)
+
+
+@pytest.mark.parametrize("kind", ["SOM", "OJM"])
+def test_serving_on_card_matches_cpu(dev, kind, tmp_path):
+    """rdfize --emit kgz's store on the card and on the CPU: the same .kgz
+    bytes, and the six bench classes answer the same rows at every batch."""
+    tb = generator.make_testbed(kind, 5000, 0.75, n_poms=2, seed=2)
+    tb.write(str(tmp_path))
+    stores = {}
+    for d in ("cuda", "cpu"):
+        stores[d] = create_kg(tb.doc, data_root=str(tmp_path), device=d).to_store(device=d)
+        persist.save(stores[d], str(tmp_path / f"{d}.kgz"))
+    assert (tmp_path / "cuda.kgz").read_bytes() == (tmp_path / "cpu.kgz").read_bytes()
+    p0, classes = serve_bench._classes(stores["cpu"])
+    K.launches = 0
+    for name, qtext in classes:
+        for batch in (1, 8, 64, 200):
+            res = {}
+            for d, store in stores.items():
+                ex = get_executor(store)
+                plan, batches, fops = serve_bench._encoded_batches(ex, qtext, p0, batch, 1, 0)
+                res[d] = ex.execute_encoded(plan, batches[0], fops)
+            assert np.array_equal(res["cuda"].counts, res["cpu"].counts), (name, batch)
+            for i in range(batch):
+                assert res["cuda"].ids(i) == res["cpu"].ids(i), (name, batch, i)
+    assert K.launches > 0

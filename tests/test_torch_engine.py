@@ -184,8 +184,8 @@ def test_rdfize_cli_slice_two_flags_byte_identical(testbeds, tmp_path, monkeypat
     assert f"({engine} engine, cpu)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,item", [(["--emit", "kgz"], 10),
-                                        (["--emit", "kgz", "--shards", "2"], 10),
+@pytest.mark.parametrize("flags,item", [(["--shards", "2"], 11),
+                                        (["--emit", "kgz", "--shards", "2"], 11),
                                         (["--shard-workers", "2"], 11)])
 def test_rdfize_later_slice_flags_exit_with_an_error(testbeds, flags, item, capsys):
     *_, d = testbeds[("SOM", 0.25, 1)]
@@ -237,9 +237,19 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
+# the serving slice's modules, which the guards below must cover
+SERVING = ("kg/store.py", "kg/persist.py", "kg/query.py", "kg/bench.py",
+           "serve/values.py", "serve/algebra.py", "serve/plan.py", "serve/oracle.py",
+           "serve/exec.py", "serve/fastpath.py", "serve/bench.py",
+           "kernels/scan_join.py", "api/__init__.py", "api/errors.py",
+           "launch/query.py")
+
+
 def test_port_imports_nothing_of_jax_or_repro():
     files = sorted((ROOT / "src/repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    rel = {p.relative_to(ROOT / "src/repro_torch").as_posix() for p in files[:-1]}
+    assert set(SERVING) <= rel
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -255,6 +265,8 @@ def test_every_port_module_imports_first():
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "src/repro_torch").rglob("*.py")
     )
+    assert {"repro_torch." + m.removesuffix(".py").replace("/", ".").removesuffix(".__init__")
+            for m in SERVING} <= set(mods)
     code = (
         "import sys, importlib, torch\n"
         f"for m in {mods!r}:\n"
