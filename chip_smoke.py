@@ -21,7 +21,8 @@ Phases, each of which makes the script exit non-zero when it fails:
      events; bound each by the bytes its input needs and by the operations
      it needs (K1: its compiled loop, read with ``cuobjdump -sass``; K3: one
      compare a (child, parent) pair, on the pipe the compiled compare
-     issues to);
+     issues to); K3's compiled scan loop is read and counted a pair, and its
+     1M launch is checked on its first and its last 65,536 child rows;
   5. drive ``rdfize`` through ``repro_torch.launch.rdfize.main``, each path
      with the kernels' launch counters set to 0 just before it and read just
      after: the optimized engine (sorted PJTT) on every testbed, then at 1M
@@ -42,7 +43,8 @@ Phases, each of which makes the script exit non-zero when it fails:
      capacities the executor converges to; time it like phase 4 and bound
      it by the 32-byte sectors its searches touch, the gathered columns and
      the outputs, and by its search compares and sort compare-exchanges;
-     print its chain of dependent loads;
+     print its chain of dependent loads (the k-ary searches' and a
+     bisection's);
   8. serve the six ``serve/bench.py`` query classes at batch 1, 8, 64 and
      4096: the card's rows must equal the CPU's over the 100K and the 1M
      stores, and over the 100K stores a query a class must equal
@@ -202,10 +204,10 @@ def timed(name, kernel, fn, plain, shape, nbytes, ops_ms, setup=None, reps=20,
     return entry
 
 
-def sass_loop(lib_path, function: str) -> dict[str, int]:
-    """Opcode counts of the longest loop (a backward branch) of the compiled
-    kernel whose mangled name contains ``function``, from ``cuobjdump -sass``."""
-    import collections
+def _sass_function(lib_path, function: str):
+    """(address, opcode, opcode with its modifiers, operands) of each
+    instruction of the compiled kernel whose mangled name contains
+    ``function``, from ``cuobjdump -sass``."""
     import re
 
     from repro_torch.kernels import _build
@@ -216,13 +218,42 @@ def sass_loop(lib_path, function: str) -> dict[str, int]:
     parts = re.split(r"\n\s*Function : (\S+)", sass)
     bodies = [body for name, body in zip(parts[1::2], parts[2::2]) if function in name]
     check(len(bodies) == 1, f"{len(bodies)} compiled functions match {function}")
-    ins = [(int(addr, 16), op, rest) for addr, op, rest in re.findall(
-        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)\S*\s*([^;]*);", bodies[0])]
-    loops = [(int(m.group(1), 16), addr) for addr, op, rest in ins if op == "BRA"
+    return [(int(addr, 16), op, op + mods, rest) for addr, op, mods, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\S*)\s*([^;]*);",
+        bodies[0])]
+
+
+def sass_loop(lib_path, function: str) -> dict[str, int]:
+    """Opcode counts of the longest loop (a backward branch) of the compiled
+    kernel whose mangled name contains ``function``."""
+    import collections
+    import re
+
+    ins = _sass_function(lib_path, function)
+    loops = [(int(m.group(1), 16), addr) for addr, op, _, rest in ins if op == "BRA"
              for m in [re.match(r"\W*0x([0-9a-f]+)", rest)] if m and int(m.group(1), 16) < addr]
     check(bool(loops), f"no loop found in the SASS of {function}")
     start, end = max(loops, key=lambda t: t[1] - t[0])
-    return dict(collections.Counter(op for addr, op, _ in ins if start <= addr <= end))
+    return dict(collections.Counter(op for addr, op, _, _ in ins if start <= addr <= end))
+
+
+def sass_groups(lib_path, function: str, min_compares: int) -> list[dict[str, int]]:
+    """K3's compiled scan groups: each straight run of instructions from a
+    16-byte shared load (``LDS.128``) to the next branch that holds at
+    least ``min_compares`` ISETPs (the slow path's subject loads hold
+    fewer), as opcode counts with their modifiers."""
+    import collections
+
+    ins = _sass_function(lib_path, function)
+    groups = []
+    for i, (_, _, full, _) in enumerate(ins):
+        if full != "LDS.128":
+            continue
+        end = next((k for k in range(i + 1, len(ins)) if ins[k][1] == "BRA"), len(ins) - 1)
+        seg = collections.Counter(f for _, _, f, _ in ins[i: end + 1])
+        if sum(c for f, c in seg.items() if f.startswith("ISETP")) >= min_compares:
+            groups.append(dict(seg))
+    return groups
 
 
 def loop_ops_ms(n_iters: int, opcodes: dict[str, int], rates: dict) -> float:
@@ -464,10 +495,22 @@ def phase_kernels(beds, rates):
             sectors=sectors, design_bytes=design,
             design_ms=design / HBM_BYTES_PER_S * 1e3))
     # ---- K3 nested_join: the naive OJM's join, on the testbeds' own keys
-    k3_loop = sass_loop(_build._target("nested_join"), "nested_join_kernel")
-    check("ISETP" in k3_loop, f"no ISETP compare in the compiled scan loop: {k3_loop}")
-    log(f"K3 compiled scan loop: {sum(k3_loop.values())} instructions {k3_loop}; the "
-        "compare is ISETP, on the ALU pipe")
+    # the compiled scan groups of the variant the 1M shape launches: 4
+    # parents against R keys, from the 16-byte key load to the branch
+    k3_R = nested_join.pick_rows_per_thread(ROWS_PAPER, rates["sms"])
+    groups = sass_groups(_build._target("nested_join"), f"nested_join_kernelILi{k3_R}E",
+                         4 * k3_R)
+    check(bool(groups), "no compiled scan group of 4 x R ISETP compares in nested_join")
+    g_pairs = 4 * k3_R * len(groups)
+    g_all = sum(sum(g.values()) for g in groups)
+    g_isetp = sum(c for g in groups for op, c in g.items() if op.startswith("ISETP"))
+    g_alu = sum(c for g in groups for op, c in g.items() if op.split(".")[0] in ALU_OPCODES)
+    k3_sass = dict(rows_per_thread=k3_R, groups=len(groups), instructions_per_pair=g_all / g_pairs,
+                   isetp_per_pair=g_isetp / g_pairs, alu_per_pair=g_alu / g_pairs)
+    log(f"K3 compiled scan (R={k3_R}): {len(groups)} copies of the group of {4 * k3_R} "
+        f"(child, parent) pairs, {k3_sass['instructions_per_pair']:.4f} instructions a pair, "
+        f"ISETP {k3_sass['isetp_per_pair']:.4f} a pair, ALU pipe "
+        f"{k3_sass['alu_per_pair']:.4f} a pair; the groups' opcodes: {groups}")
     k3_err, k3_entries = 0, []
 
     def k3_case(name, pk, ps, ck, K):
@@ -497,8 +540,22 @@ def phase_kernels(beds, rates):
     paper = join_inputs(beds[("OJM", ROWS_PAPER)][0], dev)
     pk, ps, ck = paper
     k3_case(f"1M OJM, child rows 0..{K3_SLICE}", pk, ps, ck[:K3_SLICE].contiguous(), K)
+    # one launch over all 1M child rows: its first and its last rows (the
+    # ragged last CTA) against the plain join of those rows
+    m = ck.numel()
+    full = nested_join.nested_join(pk, ps, ck, K)
+    for rows in (slice(0, K3_SLICE), slice(m - K3_SLICE, m)):
+        want = nested_join.nested_join_plain(pk, ps, ck[rows].contiguous(), K)
+        torch.cuda.synchronize()
+        e = max_abs_err([(full[0][rows], want[0]), (full[1][rows], want[1])])
+        k3_err = max(k3_err, e)
+        log(f"K3 nested_join 1M OJM, one launch, child rows {rows.start}..{rows.stop}: "
+            f"matches={int(full[1][rows].sum())}: max_abs_err {e}")
+        check(e == 0, f"nested_join disagrees with its plain version (rows {rows})")
+    del full
     k3_entries.append(k3_timed(*small, K_small, plain_reps=3))
-    k3_entries.append(k3_timed(pk, ps, ck, K, reps=5, plain_reps=1, plain_warmup=0))
+    k3_entries.append(k3_timed(pk, ps, ck, K, reps=5, plain_reps=1, plain_warmup=0,
+                               **k3_sass))
     return {
         "hash_mix": dict(err=k1_err, timings=k1_entries),
         "bucket_dedup": dict(err=k2_err, timings=k2_entries),
@@ -859,11 +916,18 @@ def phase_k4(stores, rates):
                 e = max_abs_err([(got[1], want[1]), (got[2], want[2]), *zip(got[0], want[0])])
                 err = max(err, e)
                 R = len(fp.spec.readers)
-                chain = sum(fp.spec.rounds if r.src[0][0] == "w" else r.prim_rounds + 1
-                            for r in fp.spec.readers)
+                # stage 0's chain of dependent loads, as the kernel counts it
+                # (the primary term's range when seeded, then one a round)
+                loads = torch.zeros((qbuf.shape[0], 2), dtype=torch.int32, device=CARD)
+                K.prepare_launch(fp.spec, caps, *fp.operands, qbuf, stage0_loads=loads)[0]()
+                stage0 = int(loads.max())
+                r0 = fp.spec.readers[0]
+                seeded = r0.src[0][0] != "w"
+                bisection = seeded + (r0.prim_rounds if seeded else fp.spec.rounds)
                 log(f"K4 scan_join {kind} 1M {name} batch {batch}: readers {R}, caps {caps}, "
-                    f"rows {int(got[1][:batch].sum())}, needed {got[2].tolist()}: "
-                    f"max_abs_err {e}")
+                    f"rows {int(got[1][:batch].sum())}, needed {got[2].tolist()}, stage-0 "
+                    f"dependent loads {stage0} (counted by the kernel; a bisection of the "
+                    f"spec's fixed rounds would make {bisection}): max_abs_err {e}")
                 check(e == 0, f"scan_join disagrees with its plain version ({kind} {name} "
                       f"batch {batch})")
                 w = k4_work(fp.spec, caps, fp.operands, qbuf)
@@ -877,9 +941,10 @@ def phase_k4(stores, rates):
                         fp.spec, caps, *fp.operands, qbuf),
                     f"{kind} 1M {name}: B={qbuf.shape[0]},R={R},caps={list(caps)}",
                     nbytes=w["nbytes"], ops_ms=ops_ms, plain_reps=10, reps=50, bare=launch,
-                    dependent_loads=chain, search_rounds=w["rounds"],
-                    key_sectors=w["sectors"], prim_sectors=w["prim_sectors"],
-                    gathered=w["gathered"], sort_cx=w["cx"]))
+                    stage0_loads=stage0,
+                    search_rounds=w["rounds"], key_sectors=w["sectors"],
+                    prim_sectors=w["prim_sectors"], gathered=w["gathered"],
+                    sort_cx=w["cx"]))
     return dict(err=err, timings=entries)
 
 

@@ -93,7 +93,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.bucket_dedup_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, P, I]
         lib.bucket_dedup_launch.restype = I
     elif name == "nested_join":
-        lib.nested_join_launch.argtypes = [P, P, P, LL, LL, I, P, P, P, I]
+        lib.nested_join_launch.argtypes = [P, P, P, LL, LL, I, I, P, P, P, I]
         lib.nested_join_launch.restype = I
     else:
         lib.scan_join_launch.argtypes = [

@@ -6,8 +6,11 @@ row ``i`` holds the first ``K`` parent subjects whose key equals
 ``child_keys[i]``, in parent index order, padded with ``-1``;
 ``valid = (col < count) & (subjects != -1)``; ``truncated`` is true where a
 row has more than ``K`` matches.  For a CUDA tensor the wrapper launches the
-hand-written kernel ``csrc/nested_join.cu`` (one thread per child row,
-parent tiles through shared memory); for a CPU tensor it runs the plain
+hand-written kernel ``csrc/nested_join.cu``: each thread holds R child rows
+in registers (R = 4 or 2, the most that still gives every SM
+:data:`CTAS_PER_SM` CTAs), parent tiles stream through shared memory
+double-buffered, and the scan compares 4 parents with the R keys and
+branches once for those 4·R pairs.  For a CPU tensor it runs the plain
 version below.  It replaces the Pallas kernel ``repro.kernels.nested_join``.
 """
 
@@ -21,6 +24,20 @@ from repro_torch.kernels import _build
 # once; a block holds at most this many (row, parent) pairs.
 PLAIN_BLOCK_PAIRS = 1 << 24
 launches = 0  # kernel launches by ``nested_join`` since the last reset
+# the kernel's CTA (csrc/nested_join.cu: kThreads) and its row blocking
+CTA_THREADS = 64
+ROWS_PER_THREAD = (4, 2)
+CTAS_PER_SM = 8  # half of the 16 CTAs an SM holds at 64 registers a thread
+
+
+def pick_rows_per_thread(m: int, sms: int) -> int:
+    """The kernel's R for ``m`` child rows on a card with ``sms`` SMs: the
+    largest that still gives every SM :data:`CTAS_PER_SM` CTAs (R = 4 from
+    about 270K rows on an H100), else the smallest."""
+    for r in ROWS_PER_THREAD:
+        if -(-m // (CTA_THREADS * r)) >= CTAS_PER_SM * sms:
+            return r
+    return ROWS_PER_THREAD[-1]
 
 
 def _finish(subjects: torch.Tensor, counts: torch.Tensor, max_matches: int):
@@ -78,10 +95,11 @@ def nested_join(parent_keys, parent_subjects, child_keys, max_matches: int):
     counts = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return _finish(subjects, counts, K)
+    R = pick_rows_per_thread(m, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _build.library("nested_join")
     rc = lib.nested_join_launch(
         parent_keys.data_ptr(), parent_subjects.data_ptr(), child_keys.data_ptr(),
-        n, m, K, subjects.data_ptr(), counts.data_ptr(),
+        n, m, K, R, subjects.data_ptr(), counts.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, dev.index or 0,
     )
     _build.check(lib, rc, "nested_join")

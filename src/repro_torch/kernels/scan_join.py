@@ -21,7 +21,13 @@ Two formulations of the same function:
   JAX package's ``chain_query`` under ``vmap``); the CPU runs it, and
   the card compares the kernel with it;
 * the hand-written CUDA kernel ``csrc/scan_join.cu`` (one block per
-  query), which :func:`scan_join` launches for CUDA tensors.
+  query), which :func:`scan_join` launches for CUDA tensors.  It searches
+  on groups of lanes (stage 0 a warp a search, 33-ary rounds with a pivot a
+  lane and ``__ballot_sync``; a bind stage :func:`bind_search_lanes` lanes a
+  left row), keeps the chain's columns in shared memory where they fit
+  (:data:`CHAIN_SMEM_INTS`) and sorts a tail of at most 32 rows on one
+  warp, each lane counting the rows before its own.  Its searches equal the bisection's only because every
+  round count covers its window (:func:`check_search_rounds`).
 
 It replaces the Pallas kernel ``repro.kernels.scan_join.pallas_scan_join``
 (``grid=(batch,)``, one program per query).  All semantics match the
@@ -47,6 +53,9 @@ UNBOUND = -1
 # what the kernel takes (csrc/scan_join.cu): readers, chain columns and
 # output columns
 MAX_READERS, MAX_COLS, MAX_OUT = 3, 12, 16
+# the chain's columns fit the kernel's shared memory up to this many ints a
+# query (csrc/scan_join.cu: kChainSmemInts); above it they go to scratch
+CHAIN_SMEM_INTS = 12288
 launches = 0  # kernel launches by ``scan_join`` since the last reset
 
 
@@ -134,6 +143,37 @@ class ChainSpec:
     key_bits: int
     rounds: int                            # full-store bisection rounds
     store_n: int                           # base rows (>= 1)
+
+
+def check_search_rounds(spec: ChainSpec, operands) -> None:
+    """Raise unless every search's round count covers its window:
+    ``spec.rounds >= bit_length(store_n)`` for a full-index search and each
+    reader's ``prim_rounds >= bit_length`` of its widest primary-term range
+    (``operands[i][5]`` is reader ``i`` s ``prim_start``).  The bisection
+    then ends at the window's partition point, which the kernel's k-ary
+    searches find; with fewer rounds it would stop short, and no other
+    search reproduces where."""
+    if spec.rounds < int(spec.store_n).bit_length():
+        raise ValueError(f"chain spec has {spec.rounds} search rounds for "
+                         f"{spec.store_n} rows")
+    for i, r in enumerate(spec.readers):
+        prim = operands[i][5]
+        widest = int((prim[1:] - prim[:-1]).max()) if prim.shape[0] > 1 else 0
+        if r.prim_rounds < widest.bit_length():
+            raise ValueError(f"reader {i} has {r.prim_rounds} seeded search rounds "
+                             f"for a primary-term range of {widest} rows")
+
+
+def bind_search_lanes(n_left: int) -> int:
+    """Lanes each left row of a bind stage takes in the kernel
+    (``csrc/scan_join.cu::bind_ranges``) when the stage has ``n_left`` left
+    rows: as many as 256 threads allow, from 32 down to 2.  A primary-term
+    window no wider than that is probed whole in one round; a wider one is
+    searched by the group's two halves, one for each end."""
+    for lanes, rows in ((32, 8), (16, 16), (8, 32), (4, 64)):
+        if n_left <= rows:
+            return lanes
+    return 2
 
 
 def qrow_width(n_readers: int) -> int:
@@ -351,9 +391,10 @@ _scratch: dict[torch.device, torch.Tensor] = {}
 
 
 def _scratch_for(device, n_ints: int) -> torch.Tensor:
-    """Per-query scratch (two ping-pong column tables, the count prefix sums
-    and the left rows' range starts): one grow-only buffer per device, reused
-    by every launch on the stream (launches are ordered on it)."""
+    """Per-query scratch for a chain whose columns do not fit the kernel's
+    shared memory (two ping-pong column tables, the count prefix sums and
+    the left rows' range starts): one grow-only buffer per device, reused by
+    every launch on the stream (launches are ordered on it)."""
     buf = _scratch.get(device)
     if buf is None or buf.numel() < n_ints:
         buf = torch.empty(max(n_ints, 1), dtype=torch.int32, device=device)
@@ -381,27 +422,37 @@ def _spec_ints(spec: ChainSpec, caps, operands) -> list[int]:
     return ints
 
 
-def prepare_launch(spec: ChainSpec, caps: tuple[int, ...], *args):
+def prepare_launch(spec: ChainSpec, caps: tuple[int, ...], *args,
+                   stage0_loads: torch.Tensor | None = None):
     """Check one launch's CUDA inputs (``*args`` as :func:`scan_join`
     takes them) and allocate its outputs; returns
     ``(launch, out_cols, n, needed)`` where ``launch()`` enqueues the kernel
     on the current stream (and raises if the launch is refused) without
     counting it.  :func:`scan_join` launches through it; a timing loop can
-    call ``launch`` back to back."""
+    call ``launch`` back to back.  Given ``stage0_loads`` (int32 ``[B, 2]``
+    on the card), the kernel also writes there the dependent global loads
+    each query's lower and upper stage-0 search made, as it counted them."""
     operands, qbuf = _split_args(spec, args)
     caps = tuple(int(c) for c in caps)
     _check(spec, caps, operands, qbuf)
     dev = qbuf.device
     B, cap = qbuf.shape[0], caps[-1]
+    if stage0_loads is not None and (
+            stage0_loads.shape != (B, 2) or stage0_loads.dtype != torch.int32
+            or stage0_loads.device != dev or not stage0_loads.is_contiguous()):
+        raise ValueError(f"stage0_loads must be a contiguous int32 [{B}, 2] tensor on {dev}")
     outs = tuple(torch.empty((B, cap), dtype=torch.int32, device=dev)
                  for _ in spec.out_cols)
     n = torch.empty(B, dtype=torch.int32, device=dev)
     needed = torch.empty((B, len(spec.readers)), dtype=torch.int32, device=dev)
     capmax = max(caps)
-    scratch = _scratch_for(dev, B * (2 * spec.n_cols + 2) * capmax)
+    chain_ints = (2 * spec.n_cols + 2) * capmax
+    scratch = 0 if chain_ints <= CHAIN_SMEM_INTS else _scratch_for(
+        dev, B * chain_ints).data_ptr()
     ptrs = [t.data_ptr() for pack in operands for t in pack]
     ptrs += [0] * (6 * (MAX_READERS - len(operands)))
-    ptrs += [qbuf.data_ptr(), n.data_ptr(), needed.data_ptr(), scratch.data_ptr()]
+    ptrs += [qbuf.data_ptr(), n.data_ptr(), needed.data_ptr(), scratch,
+             0 if stage0_loads is None else stage0_loads.data_ptr()]
     ptrs += [o.data_ptr() for o in outs] + [0] * (MAX_OUT - len(outs))
     ints = _spec_ints(spec, caps, operands)
     lib = _build.library("scan_join")

@@ -129,6 +129,7 @@ def build(ex, plan: P.Plan) -> "SigFastPath | None":
         khi, klo = store.device_keys(r.order)
         c0, c1, c2 = store.device_cols(r.order)
         operands += [khi, klo, c0, c1, c2, store.device_primary_starts(r.order)]
+    K.check_search_rounds(spec, [operands[6 * i: 6 * i + 6] for i in range(len(readers))])
     return SigFastPath(ex, plan, spec, tuple(operands), tuple(cap_names),
                        tuple(base_caps))
 

@@ -114,6 +114,87 @@ def test_nested_join_kernel_matches_plain(dev, m, n, n_keys, K):
         assert bool(got[2]) == bool((spans > K).any())
 
 
+# K3's register-blocked design: a CTA covers 64 * R child rows (R rows a
+# thread, R picked from the row count), parents stream in tiles of 512
+# scanned 4 at a time
+NJ_CTA, NJ_TILE = nested_join.CTA_THREADS, 512
+
+
+def _rows_for(R, dm):
+    """A child row count the wrapper runs with R rows a thread on this card,
+    dm rows from a multiple of a CTA's 64 * R rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    least = {4: 4, 2: 0}[R] * nested_join.CTAS_PER_SM * sms * NJ_CTA
+    m = max(least, 3 * NJ_CTA * R) + (NJ_CTA * R if dm < 0 else 0) + dm
+    assert nested_join.pick_rows_per_thread(m, sms) == R
+    return m
+
+
+def _nested_join_case(dev, m, n, n_keys, K, seed):
+    rng = np.random.default_rng(seed)
+    pk = torch.from_numpy(rng.integers(0, n_keys, size=n).astype(np.int32)).to(dev)
+    ps = torch.from_numpy(rng.integers(0, 10**6, size=n).astype(np.int32)).to(dev)
+    ck = torch.from_numpy(rng.integers(0, n_keys + 2, size=m).astype(np.int32)).to(dev)
+    got = nested_join.nested_join(pk, ps, ck, K)
+    want = nested_join.nested_join_plain(pk, ps, ck, K)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("R", nested_join.ROWS_PER_THREAD)
+@pytest.mark.parametrize("dm", [-1, 0, 1])
+def test_nested_join_rows_at_a_cta_edge(dev, R, dm):
+    _nested_join_case(dev, _rows_for(R, dm), 300, 50, 4, seed=R * 10 + dm + 1)
+
+
+@pytest.mark.parametrize("R", nested_join.ROWS_PER_THREAD)
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7, NJ_TILE - 1, NJ_TILE, NJ_TILE + 1,
+                               NJ_TILE + 2, NJ_TILE + 3, 2 * NJ_TILE, 2 * NJ_TILE + 1])
+def test_nested_join_parent_tail_and_tiles(dev, R, n):
+    # n = 1, 2, 3 (mod 4) leaves a ragged last group; a tile and two
+    _nested_join_case(dev, _rows_for(R, 1), n, 9, 4, seed=n)
+
+
+@pytest.mark.parametrize("R", nested_join.ROWS_PER_THREAD)
+@pytest.mark.parametrize("n", [1, 7, NJ_TILE + 3])
+@pytest.mark.parametrize("K_is_n", [False, True])
+def test_nested_join_all_keys_equal(dev, R, n, K_is_n):
+    """A match at every pair: every group takes the slow path; K = 1
+    truncates every row, K = n keeps every parent in order."""
+    K = n if K_is_n else 1
+    m = _rows_for(R, 3) if K * R <= 64 else NJ_CTA * 2 + 3
+    pk = torch.full((n,), 7, dtype=torch.int32, device=dev)
+    ps = torch.arange(n, dtype=torch.int32, device=dev) * 3 + 1
+    ck = torch.full((m,), 7, dtype=torch.int32, device=dev)
+    subjects, valid, truncated = nested_join.nested_join(pk, ps, ck, K)
+    want = nested_join.nested_join_plain(pk, ps, ck, K)
+    assert torch.equal(subjects, want[0]) and torch.equal(valid, want[1])
+    assert bool(truncated) == (K < n) == bool(want[2])
+    assert torch.equal(subjects[:, :K], ps[:K].expand(m, K))
+
+
+@pytest.mark.parametrize("R", nested_join.ROWS_PER_THREAD)
+def test_nested_join_row_past_K_over_groups_and_tiles(dev, R):
+    """One key matches parents spread over several 4-parent groups of three
+    tiles: the first K in parent order are kept, the rest only counted."""
+    n = 3 * NJ_TILE - 5
+    rng = np.random.default_rng(R)
+    keys = rng.integers(100, 200, size=n).astype(np.int32)
+    hits = np.sort(rng.choice(n, size=60, replace=False))
+    keys[hits] = 5
+    pk = torch.from_numpy(keys).to(dev)
+    ps = torch.from_numpy(rng.integers(0, 10**6, size=n).astype(np.int32)).to(dev)
+    m = _rows_for(R, 0)
+    ck = torch.tensor([5, 150, 5, -1], dtype=torch.int32, device=dev).repeat(m // 4)
+    got = nested_join.nested_join(pk, ps, ck, 25)
+    want = nested_join.nested_join_plain(pk, ps, ck, 25)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[2])
+    assert torch.equal(got[0][0], ps[torch.from_numpy(hits[:25]).to(dev)])
+
+
 @pytest.mark.parametrize("kind,cfg", [
     ("SOM", dict(engine="naive")), ("OJM", dict(engine="naive")),
     ("OJM", dict(join_strategy="hash")),
@@ -191,6 +272,162 @@ def test_scan_join_kernel_matches_plain(dev, text, caps_scale, bsz):
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     for a, b in zip(got[0], want[0]):
         assert torch.equal(a, b)
+
+
+def _kernel_vs_plain(store, text, caps, bsz, seed):
+    """K4 against its plain version for one chain over ``store``: ``bsz``
+    query rows built from the query's own constants, with the anchor varied
+    over real ids, ``-2`` and its own id, pad rows and limits."""
+    from repro_torch.serve import plan as P
+
+    ex = get_executor(store)
+    q = parse_select(text)
+    fp = FP.build(ex, ex.plan(q))
+    assert fp is not None
+    spec = fp.spec
+    R = len(spec.readers)
+    caps = tuple(caps)[:R]
+    rng = np.random.default_rng(seed)
+    rep = P.encode_scan_consts(store, ex.plan(q), q)
+    qb = np.zeros((bsz, K.qrow_width(R)), np.int32)
+    for i in range(bsz):
+        c = rep.copy()
+        if c[0, 2] >= 0 and i % 3:
+            c[0, 2] = [int(rng.integers(0, store.n_terms)), -2][i % 2]
+        qb[i, : 3 * R] = c.reshape(-1)
+        qb[i, 3 * R] = 0 if i % 7 == 6 else 1
+        qb[i, 3 * R + 1] = [-1, -1, 0, 2][i % 4]
+    qd = torch.from_numpy(qb).to(store.device)
+    got = K.scan_join(spec, caps, *fp.operands, qd)
+    want = K.scan_join_plain(spec, caps, *fp.operands, qd)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    return spec, want
+
+
+WIDTHS = (1, 32, 33, 1024, 1025)
+
+
+def _widths_store(device):
+    """Predicates w<W> with exactly W triples each: their seeded stage-0
+    windows are 1, 32, 33 (one 33-ary round more than 32), 1,024 and 1,025
+    rows; a subject used as a predicate has an empty window."""
+    t = []
+    for w in WIDTHS:
+        t += [(f"<http://ex/s{i}>", f"<http://ex/w{w}>", f'"v{i % 7}"') for i in range(w)]
+    return TripleStore.from_ntriples(sorted(set(t)), device=device)
+
+
+WINDOW_QUERIES = [f"SELECT * WHERE {{ ?s <http://ex/w{w}> ?o }}" for w in WIDTHS] + [
+    'SELECT * WHERE { ?s <http://ex/w1025> "v3" }',   # a window inside the range
+    "SELECT * WHERE { ?s <http://ex/s3> ?o }",         # width 0
+    "SELECT * WHERE { ?s ?p ?o }",                     # the whole store
+    "SELECT * WHERE { ?s <http://ex/w33> ?o . ?s <http://ex/w1025> ?b }",
+    "SELECT ?o WHERE { ?s <http://ex/w1025> ?o }",    # equal output rows
+]
+
+
+@pytest.mark.parametrize("text", WINDOW_QUERIES)
+@pytest.mark.parametrize("cap", [8, 32, 64, 128])
+def test_scan_join_search_windows(dev, text, cap):
+    _kernel_vs_plain(_widths_store(dev), text, (cap,) * 3, 9, seed=cap)
+
+
+# stage 0's rounds (lower, upper) over a w-row window that lies wholly in
+# the bound's range: the lower search's probes all fail and the upper's all
+# pass, so the pivots lo + (l + 1) * w / 33 leave w / 33 rows to the lower
+# search and w - 32 * w / 33 - 1 to the upper
+STAGE0_ROUNDS = {1: (1, 1), 32: (1, 1), 33: (2, 1), 1024: (2, 2), 1025: (2, 2)}
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_scan_join_counts_stage0_loads(dev, w):
+    """The kernel's own count of stage 0's dependent loads: the primary
+    term's range, then one a 33-ary round; none for an unknown constant."""
+    from repro_torch.serve import plan as P
+
+    store = _widths_store(dev)
+    ex = get_executor(store)
+    q = parse_select(f"SELECT * WHERE {{ ?s <http://ex/w{w}> ?o }}")
+    fp = FP.build(ex, ex.plan(q))
+    assert len(fp.spec.readers) == 1 and fp.spec.readers[0].src[0][0] != "w"
+    c = P.encode_scan_consts(store, ex.plan(q), q).reshape(-1)
+    qb = np.zeros((2, K.qrow_width(1)), np.int32)
+    qb[:, :3] = c
+    qb[1, :3] = np.where(c >= 0, -2, c)
+    qb[:, 3], qb[:, 4] = 1, -1
+    loads = torch.full((2, 2), -7, dtype=torch.int32, device=dev)
+    launch, _, n, _ = K.prepare_launch(fp.spec, (64,), *fp.operands,
+                                       torch.from_numpy(qb).to(dev), stage0_loads=loads)
+    launch()
+    torch.cuda.synchronize()
+    assert n.tolist() == [min(w, 64), 0]
+    assert loads.tolist() == [[1 + r for r in STAGE0_ROUNDS[w]], [0, 0]]
+
+
+@pytest.mark.parametrize("text", ["SELECT * WHERE { ?s ?p ?o }",
+                                  "SELECT * WHERE { ?s <http://ex/p> ?o }",
+                                  'SELECT ?s WHERE { ?s <http://ex/p> "x" }'])
+def test_scan_join_one_row_store(dev, text):
+    store = TripleStore.from_ntriples([("<http://ex/s>", "<http://ex/p>", '"x"')],
+                                      device=dev)
+    for cap in (2, 32, 64):
+        _kernel_vs_plain(store, text, (cap,), 5, seed=cap)
+
+
+def _wide_subject_store(device):
+    """Subject s0 holds 42 triples, so a bind reader seeded by the subject
+    has a primary range wider than 32 rows (prim_rounds 6)."""
+    t = [(f"<http://ex/s{i}>", "<http://ex/p1>", f'"v{j}"')
+         for i in range(6) for j in range(40 if i == 0 else 2)]
+    t += [(f"<http://ex/s{i}>", "<http://ex/p0>", '"anchor"') for i in range(6)]
+    t += [(f"<http://ex/s{i}>", "<http://ex/p2>", f"<http://ex/o{i % 5}>") for i in range(60)]
+    return TripleStore.from_ntriples(sorted(set(t)), device=device)
+
+
+@pytest.mark.parametrize("caps", [(8, 64, 64), (32, 128, 128), (8, 32, 32)])
+def test_scan_join_bind_search_wide_primary_range(dev, caps):
+    store = _wide_subject_store(dev)
+    for text in ('SELECT * WHERE { ?s <http://ex/p0> "anchor" . ?s <http://ex/p1> ?b }',
+                 'SELECT * WHERE { ?s <http://ex/p0> "anchor" . ?s <http://ex/p1> ?b . '
+                 '?s <http://ex/p2> ?c }'):
+        spec, _ = _kernel_vs_plain(store, text, caps, 6, seed=sum(caps))
+        assert max(r.prim_rounds for r in spec.readers[1:]) > 5
+
+
+@pytest.mark.parametrize("cap0", [8, 16, 32, 64, 128, 512])
+def test_scan_join_bind_search_groups(dev, cap0):
+    """Left row counts that give each bind row 32, 16, 8, 4 and 2 lanes,
+    and 2 lanes over several passes of 128 rows."""
+    text = "SELECT * WHERE { ?s <http://ex/p1> ?o . ?s <http://ex/p2> ?c }"
+    spec, want = _kernel_vs_plain(_chain_store(dev), text, (cap0, 1024), 4, seed=cap0)
+    assert len(spec.readers) == 2 and int(want[2][0]) > 128
+    assert K.bind_search_lanes(min(int(want[2][0]), cap0)) == {
+        8: 32, 16: 16, 32: 8, 64: 4, 128: 2, 512: 2}[cap0]
+
+
+@pytest.mark.parametrize("n_unbound", [0, 4, 8])
+@pytest.mark.parametrize("cap", [8, 16, 32])
+def test_scan_join_rank_tail_columns(dev, n_unbound, cap):
+    """The tail's ranks on one warp with 2, 6 and 10 output columns (each
+    column bound of its loop), from a few rows up to 32."""
+    extra = " ".join(f"?x{i}" for i in range(n_unbound))
+    for text in (f"SELECT ?o ?s {extra} WHERE {{ ?s <http://ex/p1> ?o }}",
+                 f"SELECT ?b ?s {extra} WHERE {{ ?s <http://ex/p0> ?a . ?s <http://ex/p1> ?b }}"):
+        _kernel_vs_plain(_chain_store(dev), text, (cap, cap), 6, seed=cap + n_unbound)
+
+
+@pytest.mark.parametrize("text,caps", [(CHAINS[3], (2048, 2048, 2048)),
+                                       (CHAINS[3], (8, 4096, 4096)),
+                                       (CHAINS[1], (4096,))])
+def test_scan_join_chain_in_global_scratch(dev, text, caps):
+    """(2 * n_cols + 2) * capmax past the kernel's shared memory: the
+    chain's columns go through global scratch; the sort runs in shared
+    memory up to 8,192 ints of output and in place in the outputs above."""
+    spec, want = _kernel_vs_plain(_chain_store(dev), text, caps, 5, seed=3)
+    assert (2 * spec.n_cols + 2) * max(caps) > K.CHAIN_SMEM_INTS
 
 
 def test_fastpath_on_card_matches_cpu(dev):

@@ -224,7 +224,7 @@ def test_cpu_wrapper_counts_no_launch(stores):
 
 
 def test_launch_marshalling(stores, monkeypatch):
-    """The argument tables the wrapper hands ``csrc/scan_join.cu`` (38
+    """The argument tables the wrapper hands ``csrc/scan_join.cu`` (39
     pointers, 70 ints, as ``scan_join_launch`` reads them), checked with a
     stand-in library: the kernel itself runs only on the card."""
     _, tfp = _both_specs(stores, QUERIES[3])
@@ -252,10 +252,24 @@ def test_launch_marshalling(stores, monkeypatch):
     launch()
     assert K.launches == before
     ptrs, n_ptrs, ints, n_ints, B, capmax, stream, dev = calls[0]
-    assert (n_ptrs, n_ints, B, capmax, stream) == (38, 70, 4, 32, 77)
+    assert (n_ptrs, n_ints, B, capmax, stream) == (39, 70, 4, 32, 77)
     assert ptrs[:18] == [t.data_ptr() for t in tfp.operands]
     assert ptrs[18:21] == [qbuf.data_ptr(), n.data_ptr(), needed.data_ptr()]
-    assert ptrs[22:26] == [o.data_ptr() for o in outs] and ptrs[26:] == [0] * 12
+    assert ptrs[23:27] == [o.data_ptr() for o in outs] and ptrs[27:] == [0] * 12
+    # the chain's columns fit the kernel's shared memory: no scratch; past
+    # CHAIN_SMEM_INTS the launch gets a global scratch buffer; no stage-0
+    # load count unless one is asked for
+    assert ptrs[21] == 0 and ptrs[22] == 0
+    big = (8, 16, 2048)
+    assert (2 * spec.n_cols + 2) * max(big) > K.CHAIN_SMEM_INTS
+    K.prepare_launch(spec, big, *tfp.operands, qbuf)[0]()
+    assert calls[1][0][21] != 0 and calls[1][5] == 2048
+    loads = torch.zeros((4, 2), dtype=torch.int32)
+    K.prepare_launch(spec, caps, *tfp.operands, qbuf, stage0_loads=loads)[0]()
+    assert calls[2][0][22] == loads.data_ptr()
+    for bad_loads in (torch.zeros((4, 3), dtype=torch.int32), torch.zeros((4, 2))):
+        with pytest.raises(ValueError, match="stage0_loads"):
+            K.prepare_launch(spec, caps, *tfp.operands, qbuf, stage0_loads=bad_loads)
     assert ints[:9] == [3, spec.n_cols, 4, 21, spec.rounds, spec.store_n, 8, 16, 32]
     kinds = {"c": 0, "b": 1, "w": 2}
     for k, r in enumerate(spec.readers):
@@ -273,3 +287,143 @@ def test_launch_marshalling(stores, monkeypatch):
                                torch.zeros((1, 8), dtype=torch.int32))[0]
     with pytest.raises(RuntimeError, match="invalid argument"):
         launch2()  # the stand-in refuses a two-reader launch
+
+
+# ---------------------------------------------------------------------------
+# the kernel's k-ary search, and the precondition that makes it exact
+# ---------------------------------------------------------------------------
+
+
+def _sorted_split_keys(rng, n):
+    """A sorted index's split keys, as ``TripleStore.device_keys`` packs
+    them: int64 keys, their high words, and their low words with the sign
+    bit flipped (so int32 order is unsigned order)."""
+    packed = np.sort(rng.integers(0, 1 << 62, size=n, dtype=np.int64))
+    packed[n // 3: n // 3 + n // 4] = packed[n // 3]  # a run of equal keys
+    khi = (packed >> 32).astype(np.int32)
+    klo = ((packed & 0xFFFFFFFF).astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
+    return packed, khi, klo
+
+
+def _group_search(khi, klo, qhi, qlo, upper, lo, hi, G):
+    """``csrc/scan_join.cu::group_search`` with ``G`` pivots a round (its
+    lanes times the pivots each lane probes): pivot k is
+    ``lo + (k + 1) * w // (G + 1)``, the probes' ``before`` bits must be a
+    prefix in k, and their count c leaves the window (pivot c-1, pivot c].
+    Returns (point, rounds)."""
+    rounds = 0
+    while lo < hi:
+        w = hi - lo
+        piv = [lo + (k + 1) * w // (G + 1) for k in range(G)]
+        bits = []
+        for g in piv:
+            tail = klo[g] <= qlo if upper else klo[g] < qlo
+            bits.append(bool(khi[g] < qhi or (khi[g] == qhi and tail)))
+        c = sum(bits)
+        assert bits == [True] * c + [False] * (G - c)
+        lo, hi = (piv[c - 1] + 1 if c else lo), (piv[c] if c < G else hi)
+        rounds += 1
+    return lo, rounds
+
+
+def _kary_rounds(w: int, G: int) -> int:
+    """The most rounds a (G + 1)-ary search takes over w rows: each round
+    leaves at most w // (G + 1) of them (G = 1: bit_length(w))."""
+    r = 0
+    while w:
+        w //= G + 1
+        r += 1
+    return r
+
+
+@pytest.mark.parametrize("G", [32 * 32, 32, 16, 1])
+def test_kary_search_finds_the_bisections_row(G):
+    rng = np.random.default_rng(G)
+    n = 3000
+    packed, khi, klo = _sorted_split_keys(rng, n)
+    windows = [(0, n), (5, 5), (7, 8), (100, 132), (100, 133), (0, 1024), (1, 1026),
+               (n - 1, n)] + [tuple(sorted(rng.integers(0, n + 1, size=2))) for _ in range(6)]
+    probes = np.concatenate([packed[rng.integers(0, n, size=6)], packed[[0, n // 3, n - 1]],
+                             rng.integers(0, 1 << 62, size=4, dtype=np.int64), [0, (1 << 62)]])
+    qhi = (probes >> 32).astype(np.int32)
+    qlo = ((probes & 0xFFFFFFFF).astype(np.uint32) ^ np.uint32(0x80000000)).view(np.int32)
+    th, tl = torch.from_numpy(khi), torch.from_numpy(klo)
+    for lo, hi in windows:
+        lo, hi = int(lo), int(hi)
+        w = hi - lo
+        for upper in (False, True):
+            want = K.lex_search2(th, tl, torch.from_numpy(qhi), torch.from_numpy(qlo), upper,
+                                 max(1, w.bit_length()), torch.tensor(lo), torch.tensor(hi))
+            for i in range(len(probes)):
+                got, rounds = _group_search(khi, klo, int(qhi[i]), int(qlo[i]), upper,
+                                            lo, hi, G)
+                assert got == int(want[i]), (lo, hi, upper, i)
+                assert rounds <= _kary_rounds(w, G)
+    assert _kary_rounds(2**20, 32) == 4 and _kary_rounds(32, 32) == 1
+    assert _kary_rounds(33, 32) == 2 and _kary_rounds(16, 16) == 1
+    assert _kary_rounds(1025 * 1025 - 1, 1024) == 2 and _kary_rounds(2**20, 1) == 21
+
+
+def _serve_template_texts():
+    from test_fastpath import CHAIN_TEMPLATES
+    from test_serve import OBJS, PREDS, SUBS, TEMPLATES
+
+    texts = []
+    for i in range(len(PREDS)):
+        p = [PREDS[i], PREDS[(i + 1) % len(PREDS)]]
+        texts += [t(p, [OBJS[i]], "2") for t in TEMPLATES]
+        texts += [t(p, [SUBS[i]]) for t in CHAIN_TEMPLATES]
+    return texts
+
+
+def _template_stores():
+    from test_serve import OBJS, PREDS, SUBS
+
+    from repro_torch.core.executor import create_kg
+    from repro_torch.rml import generator
+
+    for seed, n in ((0, 1), (1, 12), (2, 40), (3, 90)):
+        rng = np.random.default_rng(seed)
+        yield TripleStore.from_ntriples(sorted({
+            (SUBS[rng.integers(0, len(SUBS))], PREDS[rng.integers(0, len(PREDS))],
+             OBJS[rng.integers(0, len(OBJS))]) for _ in range(n)}), device="cpu")
+    for kind in ("SOM", "OJM"):
+        tb = generator.make_testbed(kind, 300, 0.5, n_poms=2, seed=5)
+        yield create_kg(tb.doc, tables={f"csv:{k}": v for k, v in (
+            ("child.csv", tb.child), ("parent.csv", tb.parent)) if v is not None},
+            device="cpu").to_store(device="cpu")
+
+
+def test_search_rounds_cover_every_fastpath_window():
+    """Every ChainSpec the fast path builds over the serve templates has
+    rounds >= bit_length(store rows) and, per reader, prim_rounds >=
+    bit_length(its widest primary-term range): the k-ary searches' answer
+    is then the bisection's.  A spec one round short is refused."""
+    import dataclasses
+
+    built = 0
+    for store in _template_stores():
+        ex = get_executor(store)
+        for text in _serve_template_texts():
+            fp = FP.build(ex, ex.plan(parse_select(text)))
+            if fp is None:
+                continue
+            built += 1
+            spec = fp.spec
+            assert spec.rounds >= int(store.n_triples).bit_length()
+            for i, r in enumerate(spec.readers):
+                prim = fp.operands[6 * i + 5].numpy()
+                assert r.prim_rounds >= int(np.diff(prim).max()).bit_length()
+            ops = [fp.operands[6 * i: 6 * i + 6] for i in range(len(spec.readers))]
+            K.check_search_rounds(spec, ops)
+            if spec.rounds > 1:
+                with pytest.raises(ValueError, match="search rounds"):
+                    K.check_search_rounds(dataclasses.replace(spec, rounds=spec.rounds - 1),
+                                          ops)
+            short = tuple(dataclasses.replace(r, prim_rounds=r.prim_rounds - 1)
+                          for r in spec.readers)
+            widest = [int(np.diff(o[5].numpy()).max()) for o in ops]
+            if any(r.prim_rounds < w.bit_length() for r, w in zip(short, widest)):
+                with pytest.raises(ValueError, match="seeded search rounds"):
+                    K.check_search_rounds(dataclasses.replace(spec, readers=short), ops)
+    assert built > 50
