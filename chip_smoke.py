@@ -21,7 +21,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      events; bound each by the bytes its input needs and by the operations
      it needs (K1: its compiled loop, read with ``cuobjdump -sass``; K3: one
      compare a (child, parent) pair, on the pipe the compiled compare
-     issues to); K3's compiled scan loop is read and counted a pair, and its
+     issues to); K2 is also held on a sparse and a dense raw layout, and one
+     whole ``radix_dedup_insert`` and its binning are timed at the OJM
+     shape; K3's compiled scan loop is read and counted a pair, and its
      1M launch is checked on its first and its last 65,536 child rows;
   5. drive ``rdfize`` through ``repro_torch.launch.rdfize.main``, each path
      with the kernels' launch counters set to 0 just before it and read just
@@ -478,22 +480,55 @@ def phase_kernels(beds, rates):
         # the least traffic: every lane's valid flag and verdict, the keys of
         # the lanes that hold one, and the distinct 32-byte sectors of the
         # hi and lo arrays that probes read and new keys are written to; the
-        # design's own traffic stages every slot of every slice in and out
-        lanes, slots = b.khi.numel(), table.hi.numel()
+        # design's own traffic reads a sector of each array a probe (no
+        # cache hit counted) and writes one of each a new key
+        lanes, keyed = b.khi.numel(), int(b.kval.sum())
         sectors = stats["read_sectors"] + stats["write_sectors"]
-        design = lanes * (4 + 4 + 1 + 1) + slots * 16 + table.n_parts
+        design = lanes * 2 + keyed * 8 + (stats["probes"] + int(want[2].sum())) * 2 * 32
+        ctas = bucket_dedup.ctas_per_sm(b.khi.shape[1], table.hi.shape[1])
+        log(f"K2 {name}: {ctas} CTAs of the kernel an SM; the timings' fresh table "
+            "is a clone made just before each launch, which leaves part of it in L2")
         k2_entries.append(timed(
             "K2", "bucket_dedup_kernel",
             lambda t: bucket_dedup.bucket_dedup(b.khi, b.klo, b.kval, *t),
             lambda t: bucket_dedup.bucket_dedup_plain(b.khi, b.klo, b.kval, *t),
             f"{name}:{table.n_parts}x{b.khi.shape[1]} lanes,"
             f"{table.n_parts}x{table.hi.shape[1]} slots",
-            nbytes=lanes * 2 + int(b.kval.sum()) * 8 + sectors * 2 * 32 + table.n_parts,
+            nbytes=lanes * 2 + keyed * 8 + sectors * 2 * 32 + table.n_parts,
             ops_ms=stats["probes"] * OPS_PER_PROBE / (
                 ALU_LANES * rates["sms"] * rates["clock_hz"]) * 1e3,
-            setup=fresh, keys=int(b.kval.sum()), probes=stats["probes"],
-            sectors=sectors, design_bytes=design,
+            setup=fresh, keys=keyed, probes=stats["probes"], rounds=stats["rounds"],
+            sectors=sectors, ctas_per_sm=ctas, design_bytes=design,
             design_ms=design / HBM_BYTES_PER_S * 1e3))
+        if name == "ojm_prefilled":
+            # the whole PTT insert the engine calls, and its host-side binning
+            # alone, by CUDA events on the same fresh tables
+            insert_ms = cuda_ms(lambda t: ops.radix_dedup_insert(
+                ops.RadixTable(*t), hi, lo, valid), fresh, reps=5)
+            bin_ms = cuda_ms(lambda _: ops.bin_lanes(hi, lo, valid, table.n_parts), reps=5)
+            k2_entries[-1].update(radix_insert_ms=insert_ms, bin_lanes_ms=bin_ms)
+            log(f"K2 ojm_prefilled: one ops.radix_dedup_insert {insert_ms:.5f} ms "
+                f"(CUDA events), of which ops.bin_lanes {bin_ms:.5f} ms")
+    # raw layouts the engine's binning does not make: a sparse OJM-like one
+    # (scattered valid lanes, not a prefix) and a dense one whose valid lanes
+    # exceed the LIST a CTA keeps in shared memory, at a load of many rounds
+    for name, (n_parts, part_len, vfrac) in (("sparse", (16, 43_520, 0.05)),
+                                             ("dense", (2, 12_000, 1.0))):
+        khi, klo, valid = keys(n_parts * part_len, 10**9, vfrac)
+        khi, klo, valid = (x.view(n_parts, part_len) for x in (khi, klo, valid))
+        t = torch.full((2, n_parts, bucket_dedup.SLICE), -1, dtype=torch.int32, device=dev)
+        stats = {}
+        got = bucket_dedup.bucket_dedup(khi, klo, valid, t[0].clone(), t[1].clone())
+        want = bucket_dedup.bucket_dedup_plain(khi, klo, valid, t[0].clone(), t[1].clone(),
+                                               stats)
+        torch.cuda.synchronize()
+        e = max_abs_err(zip(got, want))
+        k2_err = max(k2_err, e)
+        log(f"K2 bucket_dedup {name}: parts={n_parts} part_len={part_len} "
+            f"cap={bucket_dedup.SLICE} keys={int(valid.sum())} new={int(got[2].sum())} "
+            f"overflow={bool(got[3].any())} rounds={stats['rounds']} "
+            f"probes={stats['probes']}: max_abs_err {e}")
+        check(e == 0, f"bucket_dedup disagrees with its plain version ({name})")
     # ---- K3 nested_join: the naive OJM's join, on the testbeds' own keys
     # the compiled scan groups of the variant the 1M shape launches: 4
     # parents against R keys, from the 16-byte key load to the branch

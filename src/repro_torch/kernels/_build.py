@@ -90,8 +90,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.hash_mix_launch.argtypes = [P, I, LL, ULL, P, P, P, I]
         lib.hash_mix_launch.restype = I
     elif name == "bucket_dedup":
-        lib.bucket_dedup_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, P, I]
+        lib.bucket_dedup_launch.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P, I]
         lib.bucket_dedup_launch.restype = I
+        lib.bucket_dedup_ctas_per_sm.argtypes = [I, I, I]
+        lib.bucket_dedup_ctas_per_sm.restype = I
     elif name == "nested_join":
         lib.nested_join_launch.argtypes = [P, P, P, LL, LL, I, I, P, P, P, I]
         lib.nested_join_launch.restype = I

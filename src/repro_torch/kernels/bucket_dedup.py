@@ -6,8 +6,9 @@ Partition ``p`` inserts ``keys[p, :]`` into its own table slice
 ``MAX_PROBE_ROUNDS`` rounds).  The table is updated in place, where the
 Pallas kernel aliases it input -> output, and returned.  For a CUDA tensor
 the wrapper launches the hand-written kernel ``csrc/bucket_dedup.cu`` (one
-CTA per partition, the slice in shared memory); for a CPU tensor it runs
-the plain version below.  It replaces the Pallas kernel
+CTA per partition: the table probed in place in device memory, the claims
+in shared memory, only the partition's valid lanes walked); for a CPU
+tensor it runs the plain version below.  It replaces the Pallas kernel
 ``repro.kernels.bucket_dedup``.
 """
 
@@ -19,10 +20,13 @@ from repro_torch.core.hashing import EMPTY
 from repro_torch.core.hashset import MAX_PROBE_ROUNDS, _I32_MAX, _probe_geometry
 from repro_torch.kernels import _build
 
-# Largest table slice (slots) one CTA holds in shared memory: hi, lo and a
-# claim word, 12 bytes a slot, 192 KB of the 227 KB a block may use.  The
-# same value is kSlice in csrc/bucket_dedup.cu; a test holds the two equal.
+# Largest table slice (slots) one CTA takes: its claim array, one int32 a
+# slot, lives in shared memory (64 KB).  Valid lanes a CTA keeps in shared
+# memory (12 bytes each); the rest go to a scratch row of lane indices.  The
+# same values are kSlice and kList in csrc/bucket_dedup.cu; tests hold them
+# equal.
 SLICE = 16384
+LIST = 3072
 launches = 0  # kernel launches by ``bucket_dedup`` since the last reset
 
 
@@ -98,8 +102,8 @@ def bucket_dedup(keys_hi, keys_lo, valid, table_hi, table_lo):
     if keys_hi.device.type != "cuda":
         raise ValueError(f"bucket_dedup runs on cuda or cpu tensors, not {keys_hi.device}")
     if cap > SLICE:
-        raise ValueError(f"a table slice of {cap} slots exceeds the {SLICE} that "
-                         "fit in one CTA's shared memory; use more partitions")
+        raise ValueError(f"a table slice of {cap} slots exceeds the {SLICE} whose "
+                         "claims fit in one CTA's shared memory; use more partitions")
     ints = (keys_hi, keys_lo, table_hi, table_lo)
     if any(t.dtype != torch.int32 or not t.is_contiguous() for t in ints) or (
         valid.dtype != torch.bool or not valid.is_contiguous()
@@ -111,11 +115,14 @@ def bucket_dedup(keys_hi, keys_lo, valid, table_hi, table_lo):
     ovf = torch.empty(n_parts, dtype=torch.bool, device=keys_hi.device)
     if n_parts == 0 or part_len == 0:
         return table_hi, table_lo, is_new, ovf.fill_(False)
+    # the valid lanes past the first LIST of a partition, as lane indices
+    spill = torch.empty((n_parts, part_len - min(part_len, LIST)), dtype=torch.int32,
+                        device=keys_hi.device)
     lib = _build.library("bucket_dedup")
     rc = lib.bucket_dedup_launch(
         keys_hi.data_ptr(), keys_lo.data_ptr(), valid.data_ptr(),
         table_hi.data_ptr(), table_lo.data_ptr(), is_new.data_ptr(),
-        ovf.data_ptr(), n_parts, part_len, cap,
+        ovf.data_ptr(), spill.data_ptr(), n_parts, part_len, cap, spill.shape[1],
         torch.cuda.current_stream(keys_hi.device).cuda_stream,
         keys_hi.device.index or 0,
     )
@@ -123,3 +130,11 @@ def bucket_dedup(keys_hi, keys_lo, valid, table_hi, table_lo):
     global launches
     launches += 1
     return table_hi, table_lo, is_new, ovf
+
+
+def ctas_per_sm(part_len: int, cap: int, device=None) -> int:
+    """CTAs of the kernel one SM holds at once at this shape (the CUDA
+    occupancy calculator on the card)."""
+    device = torch.device(device or "cuda")
+    return _build.library("bucket_dedup").bucket_dedup_ctas_per_sm(
+        part_len, cap, device.index or 0)

@@ -54,20 +54,45 @@ def test_hash_mix_kernel_matches_plain(dev, n):
         assert torch.equal(hi, phi) and torch.equal(lo, plo)
 
 
-@pytest.mark.parametrize("n_parts,part_len,cap,n_distinct,vfrac", [
-    (4, 256, 1024, 300, 0.8),       # empty table
-    (128, 2048, 16384, 16384, 0.95),  # the 1M-row SOM shape
-    (2, 200, 64, 10_000, 1.0),      # overflow
+@pytest.mark.parametrize("n_parts,part_len,cap,n_distinct,vfrac,extra", [
+    (4, 256, 1024, 300, 0.8, None),       # empty table
+    (128, 2048, 16384, 16384, 0.95, None),  # the 1M-row SOM shape
+    (2, 200, 64, 10_000, 1.0, None),      # overflow
+    # the OJM step's layout: part_len far above the keys, most lanes pads
+    # (enough keys a partition for the kernel's sort by slot range)
+    (16, 43_520, 16384, 10**6, 0.05, "empty_key"),
+    # every lane valid and distinct, past the lanes a CTA keeps in shared
+    # memory (the rest walk from the scratch row), many probe rounds
+    (2, 12_000, 16384, 10**9, 1.0, None),
+    (8, 1024, 2048, 600, 0.9, "prefill"),  # a table half full beforehand
+    (3, 1001, 2048, 900, 0.9, "empty_key"),  # rows off 16-byte alignment
 ])
-def test_bucket_dedup_kernel_matches_plain(dev, n_parts, part_len, cap, n_distinct, vfrac):
+def test_bucket_dedup_kernel_matches_plain(dev, n_parts, part_len, cap, n_distinct, vfrac,
+                                           extra):
     khi, klo, rng = _keys(part_len, (n_parts, part_len), n_distinct, dev)
     valid = torch.from_numpy(rng.random((n_parts, part_len)) < vfrac).to(dev)
     t = torch.full((n_parts, cap), -1, dtype=torch.int32, device=dev)
-    k = bucket_dedup.bucket_dedup(khi, klo, valid, t.clone(), t.clone())
-    p = bucket_dedup.bucket_dedup_plain(khi, klo, valid, t.clone(), t.clone())
+    if extra == "prefill":
+        phi, plo, _ = _keys(7, (n_parts, cap // 2), n_distinct, dev)
+        ones = torch.ones_like(phi, dtype=torch.bool)
+        t2 = t.clone()
+        bucket_dedup.bucket_dedup_plain(phi, plo, ones, t, t2)
+        t = torch.stack([t, t2])
+    else:
+        t = torch.stack([t, t.clone()])
+    if extra == "empty_key":  # valid lanes whose key is the EMPTY pair, twice
+        for p, lane in ((0, 5), (0, 9), (2, 1000)):
+            khi[p, lane] = klo[p, lane] = -1
+            valid[p, lane] = True
+    before = bucket_dedup.launches
+    k = bucket_dedup.bucket_dedup(khi, klo, valid, t[0].clone(), t[1].clone())
+    assert bucket_dedup.launches == before + 1
+    p = bucket_dedup.bucket_dedup_plain(khi, klo, valid, t[0].clone(), t[1].clone())
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert bool(k[3].any()) == (cap == 64)
+    if extra == "empty_key":
+        assert bool(k[2][0, 5]) != bool(k[2][0, 9])  # one of the twins is new
 
 
 def test_radix_insert_on_card_matches_cpu(dev):

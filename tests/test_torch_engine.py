@@ -11,20 +11,24 @@ and asking for it without one raises.
 """
 
 import ast
+import json
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from repro.core.executor import create_kg as jax_create_kg
 from repro.launch import rdfize as jax_rdfize
 from repro.rml import generator, serializer
+from repro.rml import parser as jax_parser
 from repro_torch.core import executor
 from repro_torch.core.executor import EngineConfig, create_kg
 from repro_torch.kernels import bucket_dedup, hash_mix, nested_join
 from repro_torch.launch import rdfize
 from repro_torch.rml import generator as torch_generator
+from repro_torch.rml import parser as torch_parser
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_ROWS = 2000
@@ -139,6 +143,85 @@ def test_create_kg_small_batches_byte_identical(testbeds, tmp_path):
     *docs, d = testbeds[("OJM", 0.25, 1)]
     want, got, wb, gb = _both(docs, d, tmp_path, batch_size=256)
     assert gb == wb
+
+
+# A hand-written mapping (the shape of test_mapping_plan.py's WIDE_TTL), with
+# what make_testbed never emits: rr:class on two maps (the rdf:type triples,
+# the most duplicated keys the PTT sees), literal and IRI rr:constant
+# objects, a template of two placeholders, a join, and a third map whose
+# source is CSV or JSON lines.
+HAND_TTL = """
+@prefix rr: <http://www.w3.org/ns/r2rml#> .
+@prefix rml: <http://semweb.mmlab.be/ns/rml#> .
+@prefix ql: <http://semweb.mmlab.be/ns/ql#> .
+@prefix ex: <http://example.com/> .
+
+ex:GeneMap a rr:TriplesMap ;
+  rml:logicalSource [ rml:source "gene.csv" ; rml:referenceFormulation ql:CSV ] ;
+  rr:subjectMap [ rr:template "http://example.com/gene/{GENE_ID}" ; rr:class ex:Gene ] ;
+  rr:predicateObjectMap [ rr:predicate ex:name ; rr:objectMap [ rml:reference "GENE_NAME" ] ] ;
+  rr:predicateObjectMap [ rr:predicate ex:label ;
+    rr:objectMap [ rr:template "http://example.com/lbl/{GENE_ID}/{GENE_NAME}" ] ] ;
+  rr:predicateObjectMap [ rr:predicate ex:curation ; rr:objectMap [ rr:constant "curated" ] ] .
+
+ex:MutMap a rr:TriplesMap ;
+  rml:logicalSource [ rml:source "mut.csv" ; rml:referenceFormulation ql:CSV ] ;
+  rr:subjectMap [ rr:template "http://example.com/mut/{MUT_ID}" ; rr:class ex:Mutation ] ;
+  rr:predicateObjectMap [ rr:predicate ex:inGene ;
+    rr:objectMap [ rr:parentTriplesMap ex:GeneMap ;
+                   rr:joinCondition [ rr:child "GENE" ; rr:parent "GENE_ID" ] ] ] .
+
+ex:OtherMap a rr:TriplesMap ;
+  rml:logicalSource [ rml:source "other.csv" ; rml:referenceFormulation ql:CSV ] ;
+  rr:subjectMap [ rr:template "http://example.com/o/{OID}" ] ;
+  rr:predicateObjectMap [ rr:predicate ex:val ; rr:objectMap [ rml:reference "V" ] ] ;
+  rr:predicateObjectMap [ rr:predicate ex:kind ; rr:objectMap [ rr:constant ex:Other ] ] .
+"""
+
+
+def _write_hand_testbed(out_dir, fmt, n_genes=150, n_muts=600, n_other=300, seed=3):
+    """Rows with repeats (genes listed twice, mutations hitting the same
+    gene, a few values) so every predicate sees duplicates; other.* as CSV
+    or as JSON lines."""
+    rng = np.random.default_rng(seed)
+    genes = [(f"g{i % n_genes}", f"name{i % 37}") for i in range(2 * n_genes)]
+    (out_dir / "gene.csv").write_text(
+        "GENE_ID,GENE_NAME\n" + "".join(f"{g},{nm}\n" for g, nm in genes))
+    (out_dir / "mut.csv").write_text("MUT_ID,GENE\n" + "".join(
+        f"m{rng.integers(0, n_muts // 2)},g{rng.integers(0, int(n_genes * 1.2))}\n"
+        for _ in range(n_muts)))
+    rows = [{"OID": f"o{rng.integers(0, n_other // 3)}", "V": f"v{i % 5}"}
+            for i in range(n_other)]
+    if fmt == "csv":
+        (out_dir / "other.csv").write_text(
+            "OID,V\n" + "".join(f"{r['OID']},{r['V']}\n" for r in rows))
+        return HAND_TTL
+    (out_dir / "other.json").write_text("".join(json.dumps(r) + "\n" for r in rows))
+    return HAND_TTL.replace('rml:source "other.csv" ; rml:referenceFormulation ql:CSV',
+                            'rml:source "other.json" ; rml:referenceFormulation ql:JSONPath')
+
+
+@pytest.mark.parametrize("cfg", [{}, {"engine": "naive"}, {"join_strategy": "hash"},
+                                 {"stream": True, "block_rows": 128}],
+                         ids=["optimized", "naive", "hash", "stream"])
+@pytest.mark.parametrize("fmt", ["csv", "json"])
+def test_hand_written_mapping_byte_identical(tmp_path, fmt, cfg):
+    ttl = _write_hand_testbed(tmp_path, fmt)
+    want = jax_create_kg(jax_parser.parse(ttl), data_root=str(tmp_path), **cfg)
+    got = create_kg(torch_parser.parse(ttl), data_root=str(tmp_path), device="cpu", **cfg)
+    want.write_ntriples(str(tmp_path / "jax.nt"))
+    got.write_ntriples(str(tmp_path / "torch.nt"))
+    wb, gb = (tmp_path / "jax.nt").read_bytes(), (tmp_path / "torch.nt").read_bytes()
+    assert gb == wb and _stats(got) == _stats(want)
+    text = gb.decode()
+    for needle in ("<http://example.com/Gene>", "<http://example.com/Mutation>",
+                   '"curated"', "<http://example.com/Other>", "/lbl/g0/name0>",
+                   "<http://example.com/inGene>"):
+        assert needle in text
+    # duplicates were dropped: every line once, fewer lines than the triples
+    # the rows map to (4 a gene row, 2 a mutation row, 2 an other row)
+    lines = text.splitlines()
+    assert len(lines) == len(set(lines)) == got.n_triples < 4 * 300 + 2 * 600 + 2 * 300
 
 
 def test_rdfize_cli_byte_identical(testbeds, tmp_path, monkeypatch, capsys):

@@ -93,6 +93,11 @@ BUCKET_CASES = {
     "prefilled": (8, 128, 512, 400, 0.9, True),
     "one_partition": (1, 1000, 2048, 700, 1.0, True),
     "overflow": (2, 200, 64, 10_000, 1.0, False),
+    # the OJM step's layout: far more lanes than keys, most of them pads
+    "sparse_padded": (2, 8192, 8192, 10**6, 0.05, True),
+    # every lane valid, more lanes than a CTA keeps in shared memory on the
+    # card, at a load that takes many probe rounds
+    "dense_many_rounds": (1, 6000, 8192, 10**6, 1.0, False),
 }
 
 
@@ -148,6 +153,11 @@ def test_bucket_dedup_plain_reports_its_work():
 def test_bucket_dedup_slice_matches_the_cuda_source():
     src = (_build.CSRC / "bucket_dedup.cu").read_text()
     assert re.search(r"constexpr int kSlice = (\d+);", src).group(1) == str(bucket_dedup.SLICE)
+
+
+def test_bucket_dedup_list_matches_the_cuda_source():
+    src = (_build.CSRC / "bucket_dedup.cu").read_text()
+    assert re.search(r"constexpr int kList = (\d+);", src).group(1) == str(bucket_dedup.LIST)
 
 
 def test_bucket_dedup_rejects_a_table_that_does_not_fit():
