@@ -27,15 +27,16 @@ Phases, each of which makes the script exit non-zero when it fails:
      1M launch is checked on its first and its last 65,536 child rows;
   5. drive ``rdfize`` through ``repro_torch.launch.rdfize.main``, each path
      with the kernels' launch counters set to 0 just before it and read just
-     after: the optimized engine (sorted PJTT) on every testbed, then at 1M
-     rows the naive engine (SOM, and OJM: the paper's "did not finish"
-     cell), the hash PJTT (OJM) and the streamed engine (SOM, OJM).  The
-     100K runs, and the naive OJM at 20K, are repeated on the CPU and their
-     N-Triples must be byte-identical to the card's; every 1M output must
-     hold no duplicate line, exactly the distinct triples a numpy count of
-     the CSV gives, and the same sorted lines as the optimized eager run; a
-     profiled rerun of the optimized 1M runs and of the naive OJM 1M run
-     gives the card's busy share over the whole run;
+     after: the optimized engine (sorted PJTT) on every testbed and the
+     naive engine on the 1M OJM (the paper's "did not finish" cell); at
+     100K the naive engine (SOM; OJM at 20K), the hash PJTT (OJM) and the
+     streamed engine (SOM, OJM).  The 100K runs, and the naive OJM at 20K,
+     are repeated on the CPU and their N-Triples must be byte-identical to
+     the card's; every 1M output must hold no duplicate line, exactly the
+     distinct triples a numpy count of the CSV gives, and the same sorted
+     lines as the optimized eager run; a profiled rerun of the optimized
+     and the naive OJM 100K runs gives the card's busy share over a whole
+     run;
   6. write ``.kgz`` stores with ``rdfize --emit kgz`` on the card at 100K and
      1M rows (SOM and OJM); at 100K the card's bytes must equal a
      ``--device cpu`` run's;
@@ -55,7 +56,26 @@ Phases, each of which makes the script exit non-zero when it fails:
      0 just after, or the phase fails) prints queries/s and p50/p99
      dispatch latency per class and batch, and the card's busy share in a
      fast-path window and in general-path windows at batch 1 and 4096;
-  9. print the kernels line (one JSON object, all four kernels), the card
+  9. the paper's Figures 5 and 6 (``bench.paper_figs.sweep``) on the card at
+     10K and 100K rows, every kind, duplicate rate, 1 and 2 predicate-object
+     maps, optimized and naive: each 10K cell's triples and φ statistics
+     equal a CPU run's, and ``bench.op_model`` at 10K gives the CPU's φ;
+ 10. a live store over the 1M OJM store: 10,000 inserts (new terms among
+     them) and 10,000 deletes (re-inserts and duplicates among them); the
+     six bench classes at batch 1, 64 and 4096 through the overlay equal a
+     from-scratch build of the mutated set; a ``save_delta`` /
+     ``load_chain`` round trip; compaction byte-identical to that build;
+     at 100K the same sequence on the CPU gives the card's rows and bytes;
+ 11. ``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted) and
+     with 2 spawned workers (the same bytes); at 100K the card's bytes equal
+     the CPU's; the shards' union is the unsharded store, each triple on
+     its subject's shard; ``launch.query`` and the shard session answer
+     the six classes at batch 1 and 64 as the unsharded store does;
+ 12. a ``KGServer`` over the 1M OJM store with a client (the six classes,
+     round-trip p50/p99 at batch 1, a live insert/delete round trip), then
+     a ``Coordinator`` over the 4 shards in spawned server processes; K4's
+     launch count is set to 0 before and must be above 0 after;
+ 13. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
@@ -75,6 +95,7 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # Integer rates of one SM per clock (CUDA C++ Programming Guide, arithmetic
@@ -716,14 +737,13 @@ def phase_rdfize(beds, kernel_mods):
                 check_paper_tier(beds, kind, "optimized", result, out, digests)
             os.remove(out)
 
-    # the paths of slice 2 at the paper's tier, each against the optimized
-    # eager run's sorted lines; then on the small tier, cuda against cpu
-    for path, kinds in (("naive", ("SOM", "OJM")), ("hash", ("OJM",)),
-                        ("stream", ("SOM", "OJM"))):
-        for kind in kinds:
-            result, out = run_on_card(kind, ROWS_PAPER, path)
-            check_paper_tier(beds, kind, path, result, out, digests)
-            os.remove(out)
+    # the naive OJM at the paper's tier (its "did not finish" cell) against
+    # the optimized eager run's sorted lines; then the paths of slice 2 on
+    # the small tier, cuda against cpu (the 1M hash-PJTT, streamed and naive
+    # SOM reruns were cut to keep the run inside its time: PERF.md)
+    result, out = run_on_card("OJM", ROWS_PAPER, "naive")
+    check_paper_tier(beds, "OJM", "naive", result, out, digests)
+    os.remove(out)
     for path, kind, n_rows in (("naive", "SOM", ROWS_SMALL), ("naive", "OJM", ROWS_NAIVE_CPU),
                                ("hash", "OJM", ROWS_SMALL), ("stream", "SOM", ROWS_SMALL),
                                ("stream", "OJM", ROWS_SMALL)):
@@ -731,18 +751,19 @@ def phase_rdfize(beds, kernel_mods):
         same_bytes_as_cpu(kind, n_rows, path, out)
         os.remove(out)
 
-    # the paper's tier once more under torch.profiler (CUDA activity only):
-    # how busy the card is over a whole rdfize run, and on what
+    # the small tier once more under torch.profiler (CUDA activity only):
+    # how busy the card is over a whole rdfize run, and on what (these
+    # reruns were at 1M rows until the run needed the time: PERF.md)
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for kind, path in (("SOM", "optimized"), ("OJM", "optimized"), ("OJM", "naive")):
-        tb, d, _ = beds[(kind, ROWS_PAPER)]
+        tb, d, _ = beds[(kind, ROWS_SMALL)]
         log(f"profiled rerun of {tb.name} {path}:")
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                _, out = run(kind, ROWS_PAPER, path, "cuda")
+                _, out = run(kind, ROWS_SMALL, path, "cuda")
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             events = prof.events()
@@ -1083,6 +1104,461 @@ def phase_serve(stores):
     return launches
 
 
+# ------------------------------------------------------------------ slice 6
+
+FIG_SIZES = (10_000, 100_000)  # paper_figs here; the 1M tier: bench.paper_figs --full
+FIG_POMS = (1, 2)
+LIVE_BATCHES = (1, 64, 4096)
+LIVE_B1_TEXTS = 32  # distinct batch-1 overlay queries a class, each checked
+LIVE_TIMED = {1: 128, 64: 8, 4096: 4}  # warm overlay dispatches timed a class
+N_MUT = 10_000  # the live phase's inserts, and its deletes
+N_SHARDS = 4
+SERVER_TIMED_PASSES = 3  # timed round trips a class: 3 passes over 64 texts
+
+
+def reset(kernel_mods) -> None:
+    for mod in kernel_mods.values():
+        mod.launches = 0
+
+
+def counts(kernel_mods) -> dict:
+    return {name: mod.launches for name, mod in kernel_mods.items()}
+
+
+def pct(values, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q))
+
+
+def phase_paper_figs(kernel_mods):
+    """``bench.paper_figs.sweep`` on the card at 10K and 100K rows (every
+    kind, both duplicate rates, 1 and 2 predicate-object maps, optimized
+    and naive); each 10K cell's triples and statistics equal a CPU run's;
+    ``bench.op_model`` at 10K gives the CPU's numbers.  Returns the
+    launches."""
+    from repro_torch.bench import op_model, paper_figs
+
+    reset(kernel_mods)
+    t0 = time.perf_counter()
+    rows = paper_figs.sweep(sizes=FIG_SIZES, n_poms_list=FIG_POMS, device=CARD, log=False)
+    got = counts(kernel_mods)
+    log(f"paper_figs sweep on the card: {len(rows)} cells in "
+        f"{time.perf_counter() - t0:.1f} s; launches {got}")
+    for name in ("hash_mix", "bucket_dedup", "nested_join"):
+        check(got[name] > 0, f"{name} was never launched by the paper_figs sweep")
+    cpu = paper_figs.sweep(sizes=FIG_SIZES[:1], n_poms_list=FIG_POMS, device="cpu", log=False)
+
+    def key(r):
+        return (r["kind"], r["rows"], r["dup"], r["n_poms"], r["engine"])
+
+    cpu_by = {key(r): r for r in cpu}
+    by = {key(r): r for r in rows}
+    for r in rows:
+        check(r["status"] == "ok", f"paper_figs {key(r)}: {r['status']}")
+        other = by[key(r)[:4] + ("naive" if r["engine"] == "optimized" else "optimized",)]
+        check(r["n_triples"] == other["n_triples"], f"paper_figs {key(r)}: engines disagree")
+        same = ""
+        if key(r) in cpu_by:
+            c = cpu_by[key(r)]
+            check(r["n_triples"] == c["n_triples"] and r["stats"] == c["stats"],
+                  f"paper_figs {key(r)}: the card's triples or statistics differ from the CPU's")
+            same = "; triples and statistics equal the CPU run's"
+        log(f"paper_figs {r['kind']} n={r['rows']} dup={int(r['dup'] * 100)}% "
+            f"poms={r['n_poms']} {r['engine']}: {r['time_s']:.4f} s, "
+            f"{r['n_triples']} triples{same}")
+    om_card = op_model.run(sizes=FIG_SIZES[:1], device=CARD, log=False)
+    om_cpu = op_model.run(sizes=FIG_SIZES[:1], device="cpu", log=False)
+    check(om_card == om_cpu, "op_model: the card's phi values differ from the CPU's")
+    for r in om_card:
+        log(f"op_model {r['kind']} n={r['rows']} dup={int(r['dup'] * 100)}%: |Np|={r['Np']} "
+            f"|Sp|={r['Sp']} phi={r['phi']} phi_naive={r['phi_naive']} "
+            f"ratio={r['ratio']:.1f}x (equal to the CPU run's)")
+    return got
+
+
+def class_queries(store, batch: int, seed: int = 2):
+    """Each ``serve/bench.py`` class as ``batch`` query texts over
+    ``store``, the anchor object varied per query as the bench does."""
+    from repro_torch.serve import bench
+
+    p0, classes = bench._classes(store)
+    some_o = store.decode_term(int(bench._anchor_pool(store, p0, 0)[0]))
+    pool = bench._anchor_pool(store, p0, seed)[:batch]
+    anchors = [store.decode_term(int(a)) for a in pool]
+    return {name: [text.replace(some_o, a) for a in anchors] for name, text in classes}
+
+
+def run_texts(store, texts, view=None):
+    """One micro-batch of signature-equal query texts (over ``view`` when
+    given); the result and its wall time in ms."""
+    import torch
+
+    from repro_torch.serve import parse_select
+    from repro_torch.serve.exec import get_executor
+
+    ex = get_executor(store)
+    qs = [parse_select(t) for t in texts]
+    t0 = time.perf_counter()
+    res = ex.execute(ex.plan(qs[0]), qs, view=view)
+    if store.device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def row_bag(res, i):
+    return sorted(res.rows(i), key=lambda r: tuple((x is None, str(x)) for x in r))
+
+
+def mutations(store):
+    """The live phase's deterministic mutation sequence over ``store``:
+    inserts (new subjects and literals on the bench's anchors, new
+    combinations of existing terms, duplicates of base triples), deletes
+    of 10,000 base triples (the anchors' rows first, some listed twice),
+    re-inserts of deleted triples and deletes of inserted ones, as
+    ``tests/test_live.py::test_tombstone_resurrect_and_dupes`` does."""
+    import numpy as np
+
+    from repro_torch.serve import bench
+
+    preds = bench._workload_preds(store)
+    t0, t1, t2 = (store.decode_term(p) for p in preds[:3])
+    p0 = preds[0]
+    anchors = bench._anchor_pool(store, p0, 2)[:64]
+    rng = np.random.default_rng(7)
+    dec = store.decode_term
+
+    def trip(r):
+        return (dec(int(store.s[r])), dec(int(store.p[r])), dec(int(store.o[r])))
+
+    hot = np.nonzero((store.p == p0) & np.isin(store.o, anchors))[0][: N_MUT // 5]
+    rest = rng.permutation(store.n_triples)
+    rest = rest[~np.isin(rest, hot)][: N_MUT - len(hot)]
+    dels = [trip(int(r)) for r in np.concatenate([hot, rest])]
+    ins = []
+    for i in range(N_MUT // 4):  # 3 triples a new subject, one a new literal
+        s = f"<http://example.org/live/m{i}>"
+        ins += [(s, t0, dec(int(anchors[i % len(anchors)]))), (s, t1, f'"live {i}"'),
+                (s, t2, dec(int(store.o[rng.integers(0, store.n_triples)])))]
+    n_new = len(ins)
+    for _ in range(N_MUT * 3 // 20):  # new combinations of existing terms
+        a, b = rng.integers(0, store.n_triples, 2)
+        ins.append((dec(int(store.s[a])), t1, dec(int(store.o[b]))))
+    ins += [trip(int(r)) for r in rng.integers(0, store.n_triples, N_MUT - len(ins))]
+    return [("insert", ins), ("delete", dels + dels[: N_MUT // 20]),
+            ("insert", dels[: N_MUT // 10]), ("delete", ins[: n_new // 4: 3])]
+
+
+def apply_mutations(live, ops):
+    """Apply ``ops`` to ``live``; returns the model triple set and each
+    operation's result and time."""
+    model = set(live.rendered_triples())
+    done = []
+    for op, trips in ops:
+        t0 = time.perf_counter()
+        res = getattr(live, op)(trips)
+        done.append((op, len(trips), res, (time.perf_counter() - t0) * 1e3))
+        for t in trips:
+            (model.add if op == "insert" else model.discard)(t)
+    return model, done
+
+
+def phase_live(stores, paths):
+    """A live store over the 1M OJM store: 10,000 inserts (new terms
+    among them) and 10,000 deletes with re-inserts and duplicates; the six
+    bench classes at batch 1, 64 and 4096 through the overlay equal a
+    from-scratch build of the mutated set; a delta-snapshot round trip;
+    compaction byte-identical to that build; and at 100K the same sequence
+    on the CPU gives the card's rows and compacted bytes."""
+    from repro_torch.kg import persist
+    from repro_torch.kg.store import TripleStore
+    from repro_torch.live import LiveStore
+
+    base = stores[("OJM", ROWS_PAPER, "cuda")]
+    live = LiveStore(base)
+    model, done = apply_mutations(live, mutations(base))
+    for op, n, res, ms in done:
+        log(f"live 1M OJM {op} of {n} triples: {res} in {ms:.1f} ms")
+    check(set(live.rendered_triples()) == model, "live: the live triple set is not the model's")
+    check(live.n_triples == len(model), "live: n_triples")
+    t0 = time.perf_counter()
+    view = live.view()
+    for order in ("spo", "pos", "osp"):
+        view.alive(order)
+    log(f"live view(): {(time.perf_counter() - t0) * 1e3:.1f} ms ({live.n_delta} delta rows, "
+        f"{live.n_tombstones} tombstones, {view.n_terms - base.n_terms} new terms)")
+    t0 = time.perf_counter()
+    scratch = TripleStore.from_ntriples(sorted(model), device=CARD)
+    log(f"from-scratch build of the mutated set ({scratch.n_triples} triples): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # overlay rows against the rebuilt store's, as bags (overlay term ids
+    # append out of rendered order, so tied rows may come in another order).
+    # Every batch is run and checked once first, so the timed dispatches
+    # after it are warm; batch 1 gives a tail, the larger batches a median
+    # and a maximum of a few.
+    for batch in LIVE_BATCHES:
+        for name, texts in class_queries(base, LIVE_B1_TEXTS if batch == 1 else batch).items():
+            groups = [[t] for t in texts] if batch == 1 else [texts]
+            n_rows = 0
+            for qs in groups:
+                res, _ = run_texts(base, qs, view=view)
+                want, _ = run_texts(scratch, qs)
+                for i in range(len(qs)):
+                    check(res.n(i) == want.n(i) and row_bag(res, i) == row_bag(want, i),
+                          f"live {name} batch {batch}: overlay rows differ from the "
+                          "rebuilt store's")
+                n_rows += int(res.counts.sum())
+            lat = [run_texts(base, groups[k % len(groups)], view=view)[1]
+                   for k in range(LIVE_TIMED[batch])]
+            spread = (f"p50 {pct(lat, 50):.3f} ms, p99 {pct(lat, 99):.3f} ms" if batch == 1
+                      else f"median {pct(lat, 50):.3f} ms, max {max(lat):.3f} ms")
+            log(f"live 1M OJM overlay {name} batch {batch}: {n_rows} rows equal the rebuilt "
+                f"store's; dispatch {spread} over {len(lat)} warm dispatches")
+
+    # a delta snapshot chained to the served 1M .kgz, resolved back
+    parent = paths[("OJM", ROWS_PAPER)]
+    delta = os.path.join(os.path.dirname(parent), "live.delta.kgz")
+    t0 = time.perf_counter()
+    persist.save_delta(live, delta, os.path.basename(parent))
+    chain = persist.load_chain(delta, device=CARD)
+    log(f"save_delta + load_chain: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"{os.path.getsize(delta)} bytes")
+    for name, texts in class_queries(base, 64).items():
+        a, _ = run_texts(base, texts, view=live.view())
+        b, _ = run_texts(chain.base, texts, view=chain.view())
+        check(_results_equal(a, b, 64), f"live {name}: the reloaded chain's rows differ")
+    log("the reloaded delta chain answers every class with the live store's rows")
+
+    t0 = time.perf_counter()
+    compacted = live.compact()
+    log(f"compact 1M OJM live store: {time.perf_counter() - t0:.2f} s")
+    blobs = []
+    for st in (compacted, scratch):
+        out = os.path.join(os.path.dirname(parent), f"compacted-{len(blobs)}.kgz")
+        persist.save(st, out, generation=1)
+        with open(out, "rb") as f:
+            blobs.append(f.read())
+    check(blobs[0] == blobs[1], "compacted 1M store's bytes differ from the rebuilt store's")
+    for name, texts in class_queries(scratch, 64).items():
+        a, _ = run_texts(compacted, texts)
+        b, _ = run_texts(scratch, texts)
+        check(_results_equal(a, b, 64), f"live {name}: compacted rows differ")
+    log(f"compacted 1M store: {len(blobs[0])} bytes, equal to the rebuilt store's; rows equal")
+
+    # the 100K sequence on the card and on the CPU: equal rows and bytes
+    small = {}
+    for dev in ("cuda", "cpu"):
+        st = stores[("OJM", ROWS_SMALL, dev)]
+        lv = LiveStore(st)
+        apply_mutations(lv, mutations(st))
+        small[dev] = (st, lv)
+    for batch in LIVE_BATCHES:
+        for name, texts in class_queries(small["cuda"][0], batch).items():
+            a, _ = run_texts(small["cuda"][0], texts, view=small["cuda"][1].view())
+            b, _ = run_texts(small["cpu"][0], texts, view=small["cpu"][1].view())
+            check(_results_equal(a, b, batch), f"live 100K {name} batch {batch}: card != CPU")
+    blobs = []
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(os.path.dirname(parent), f"compacted-100k-{dev}.kgz")
+        persist.save(small[dev][1].compact(), out, generation=1)
+        with open(out, "rb") as f:
+            blobs.append(f.read())
+    check(blobs[0] == blobs[1], "live 100K: compacted bytes differ between the card and the CPU")
+    log("live 100K OJM: the card's overlay rows (every class, batch 1/64/4096) and compacted "
+        "bytes equal the CPU's")
+
+
+def phase_shards(beds, kernel_mods, stores, paths):
+    """``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted)
+    and with 2 spawned workers (same bytes); at 100K the card's shard
+    bytes equal the CPU's; the shards' union is the unsharded store's
+    triples, each on its subject's shard; ``launch.query`` and the shard
+    session answer the six classes as the unsharded store does.  Returns
+    the serial run's launches and the 1M manifest's path."""
+    import contextlib
+    import io
+
+    from repro_torch import api
+    from repro_torch.api import LocalSession
+    from repro_torch.kg import persist
+    from repro_torch.launch import query as query_cli
+    from repro_torch.launch import rdfize
+    from repro_torch.live import LiveStore
+    from repro_torch.shard import shard_of_term
+    from repro_torch.shard.coordinator import _Item
+
+    def build(n_rows, device, workers):
+        tb, d, _ = beds[("OJM", n_rows)]
+        out_dir = os.path.join(d, f"shards-{device}-{workers}")
+        os.makedirs(out_dir, exist_ok=True)
+        manifest = os.path.join(out_dir, "kg.shards.json")
+        t0 = time.perf_counter()
+        rdfize.main(["--mapping", os.path.join(d, "map.ttl"), "--data-root", d, "--out",
+                     manifest, "--device", device, "--emit", "kgz", "--shards",
+                     str(N_SHARDS), "--shard-workers", str(workers)])
+        wall = time.perf_counter() - t0
+        blobs = {}
+        for name in ["kg.shards.json"] + [f"kg.shard{i}.kgz" for i in range(N_SHARDS)]:
+            with open(os.path.join(out_dir, name), "rb") as f:
+                blobs[name] = f.read()
+        log(f"rdfize --shards {N_SHARDS} --shard-workers {workers} {tb.name} on {device}: "
+            f"{wall:.3f} s end to end, shard bytes "
+            f"{[len(blobs[f'kg.shard{i}.kgz']) for i in range(N_SHARDS)]}")
+        return manifest, blobs
+
+    reset(kernel_mods)
+    manifest, serial = build(ROWS_PAPER, CARD, 0)
+    got = counts(kernel_mods)
+    log(f"  launches during the serial sharded ingest: {got}")
+    for name in ("hash_mix", "bucket_dedup"):
+        check(got[name] > 0, f"{name} was never launched by the sharded ingest")
+    _, spawned = build(ROWS_PAPER, CARD, 2)
+    check(spawned == serial, "sharded ingest: 2 spawned workers wrote other bytes than serial")
+    log("1M: the manifest and the shard bytes of 2 spawned workers equal the serial run's")
+    _, small_card = build(ROWS_SMALL, CARD, 0)
+    _, small_cpu = build(ROWS_SMALL, "cpu", 0)
+    check(small_card == small_cpu, "sharded ingest 100K: the card's bytes differ from the CPU's")
+    log("100K: the card's manifest and shard bytes equal the CPU's")
+
+    unsharded = stores[("OJM", ROWS_PAPER, "cuda")]
+    want = set(LiveStore(unsharded).rendered_triples())
+    union = 0
+    for i, entry in enumerate(persist.load_manifest(manifest)["shards"]):
+        trips = LiveStore(persist.open_store(entry["abs_path"], device=CARD)).rendered_triples()
+        check(all(shard_of_term(t[0], N_SHARDS) == i for t in trips),
+              f"shard {i} holds a triple of another shard's subject")
+        check(set(trips) <= want, f"shard {i} holds a triple the unsharded store lacks")
+        union += len(trips)
+    check(union == len(want), "the shards' triples do not add up to the unsharded store's")
+    log(f"the {N_SHARDS} shards hold the unsharded store's {len(want)} triples, each on "
+        "its subject's shard")
+
+    single = LocalSession(unsharded)
+    for name, texts in class_queries(unsharded, 64).items():
+        outs = []
+        for kg in (manifest, paths[("OJM", ROWS_PAPER)]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                query_cli.main(["--kg", kg, "--device", CARD, texts[0]])
+            outs.append(buf.getvalue())
+        check(outs[0] == outs[1], f"launch.query on the manifest: {name} rows differ")
+        with api.connect(manifest, read_only=True, device=CARD) as sess:
+            t0 = time.perf_counter()
+            replies = sess.group.execute_query_group([_Item(text=t, limit=None) for t in texts])
+            ms = (time.perf_counter() - t0) * 1e3
+        for t, r in zip(texts, replies):
+            w = single.query(t, limit=1000)
+            check(not r.get("error") and [tuple(x) for x in r["rows"]] == w.rows
+                  and r["n_total"] == w.n_total, f"sharded {name} batch 64: rows differ")
+        log(f"sharded {name}: launch.query (batch 1) prints the unsharded store's rows; "
+            f"batch 64 through the shard session in {ms:.1f} ms equals them")
+    return got, manifest
+
+
+def phase_server(stores, manifest):
+    """A ``KGServer`` over the 1M OJM store with a port client: the six
+    classes equal in-process rows, round-trip p50/p99 at batch 1 over warm
+    passes, a live insert/delete round trip; then a ``Coordinator`` over
+    the 4 shards in spawned server processes.  Returns the server's K4
+    launches, which must equal its fast-path dispatches."""
+    from repro_torch.api import LocalSession
+    from repro_torch.kernels import scan_join as K
+    from repro_torch.live import LiveStore
+    from repro_torch.obs import get_registry
+    from repro_torch.serve import bench
+    from repro_torch.serve.client import connect
+    from repro_torch.serve.server import KGServer
+    from repro_torch.shard.coordinator import (
+        Coordinator,
+        connect_shard_group,
+        spawn_shard_servers,
+    )
+
+    store = stores[("OJM", ROWS_PAPER, "cuda")]
+    texts = class_queries(store, 64, seed=3)
+    # the in-process replies every round trip is held against, all computed
+    # before the launch count is reset: they run on the same card store and
+    # take the fast path (K4) in this process
+    single = LocalSession(store)
+    want = {t: single.query(t, limit=1000) for qs in texts.values() for t in qs}
+    p0 = bench._workload_preds(store)[0]
+    pred = store.decode_term(p0)
+    obj = store.decode_term(int(bench._anchor_pool(store, p0, 3)[0]))
+
+    def round_trips(c, who):
+        """A checked warm-up pass over each class's 64 texts, then
+        ``SERVER_TIMED_PASSES`` timed and checked passes."""
+        for name, qs in texts.items():
+            lat = []
+            for k in range(1 + SERVER_TIMED_PASSES):
+                for t in qs:
+                    t0 = time.perf_counter()
+                    r = c.query(t)
+                    if k:
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                    w = want[t]
+                    check([tuple(x) for x in r["rows"]] == w.rows and r["n_total"] == w.n_total,
+                          f"{who} {name}: the reply differs from the in-process rows")
+            log(f"{who} {name} batch 1: {len(qs)} queries answered with the in-process rows; "
+                f"p50 {pct(lat, 50):.3f} ms, p99 {pct(lat, 99):.3f} ms over {len(lat)} round "
+                "trips after a warm-up pass")
+
+    def fast_dispatches():
+        return get_registry().counter("exec.fastpath_dispatches").value
+
+    fast0 = fast_dispatches()
+    K.launches = 0
+    srv = KGServer(LiveStore(store), port=0, log=False).start()  # the process registry
+    try:
+        with connect(srv.host, srv.port, timeout=120.0) as c:
+            round_trips(c, "server 1M OJM")
+            q = texts["single"][0]
+            check(q == f"?s {pred} {obj}", f"server: unexpected single query {q}")
+            anchor_row = [tuple(x) for x in c.query(q)["rows"]]
+            new = ("<http://example.org/live/server>", pred, obj)
+            r = c.insert([list(new)])
+            check(r["inserted"] == 1, f"server insert: {r}")
+            check((new[0],) in [tuple(x) for x in c.query(q)["rows"]], "server: insert unseen")
+            old = (anchor_row[0][0], pred, obj)
+            r = c.delete([list(new), list(old)])
+            check((r["deleted"], r["tombstoned"]) == (2, 1), f"server delete: {r}")
+            after = [tuple(x) for x in c.query(q)["rows"]]
+            check(after == anchor_row[1:], "server: the deletes are not reflected")
+            log("server live round trip: insert, query, delete (one tombstone), query: as "
+                "expected")
+    finally:
+        srv.stop()
+    launches, fast = K.launches, fast_dispatches() - fast0
+    log(f"K4 launches by the server: {launches}; its fast-path dispatches "
+        f"(exec.fastpath_dispatches): {fast}")
+    check(launches > 0, "scan_join was never launched through the server")
+    check(launches == fast, "the server's K4 launches differ from its fast-path dispatches")
+
+    t0 = time.perf_counter()
+    servers, addresses = spawn_shard_servers(manifest, read_only=True, device=CARD)
+    coord = Coordinator(connect_shard_group(addresses), port=0, log=False,
+                        servers=servers).start()
+    log(f"coordinator over {len(servers)} spawned shard servers up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        with connect(coord.host, coord.port, timeout=120.0) as c:
+            round_trips(c, "coordinator")
+        shard_fast = []
+        for addr in addresses:
+            host, port = addr.rsplit(":", 1)
+            with connect(host, int(port), timeout=60.0) as sc:
+                counters = sc.metrics()["metrics"]["counters"]
+            shard_fast.append(counters.get("exec.fastpath_dispatches", 0))
+    finally:
+        coord.stop()
+    log(f"fast-path dispatches (K4 launches) in the shard servers' own processes: "
+        f"{shard_fast}; K4 launches in this process since the server: "
+        f"{K.launches - launches}")
+    check(all(n > 0 for n in shard_fast), "a shard server never took the fast path")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1107,20 +1583,37 @@ def main() -> int:
         phase_build()
         log("phase 3: testbeds")
         beds = make_testbeds()
-        log("phase 4: kernels against their plain versions on the card")
+        log(f"phase 4: kernels against their plain versions on the card "
+            f"(+{time.perf_counter() - T0:.1f} s)")
         kres = phase_kernels(beds, rates)
-        log("phase 5: rdfize on the card (and the small tier on the CPU)")
+        log(f"phase 5: rdfize on the card (and the small tier on the CPU) "
+            f"(+{time.perf_counter() - T0:.1f} s)")
         mods = {"hash_mix": hash_mix, "bucket_dedup": bucket_dedup, "nested_join": nested_join}
         launches = phase_rdfize(beds, mods)
-        log("phase 6: rdfize --emit kgz on the card (and the small tier on the CPU)")
+        log(f"phase 6: rdfize --emit kgz on the card (and the small tier on the CPU) "
+            f"(+{time.perf_counter() - T0:.1f} s)")
         paths, kgz_launches = phase_kgz(beds, mods)
         for name, n in kgz_launches.items():
             launches[name] += n
         stores = open_stores(paths)
-        log("phase 7: K4 against its plain version on the card")
+        log(f"phase 7: K4 against its plain version on the card "
+            f"(+{time.perf_counter() - T0:.1f} s)")
         kres["scan_join"] = phase_k4(stores, rates)
-        log("phase 8: serving the bench classes on the card")
+        log(f"phase 8: serving the bench classes on the card "
+            f"(+{time.perf_counter() - T0:.1f} s)")
         launches["scan_join"] = phase_serve(stores)
+        log(f"phase 9: the paper's figures on the card (+{time.perf_counter() - T0:.1f} s)")
+        for name, n in phase_paper_figs(mods).items():
+            launches[name] += n
+        log(f"phase 10: a live store over the 1M OJM store (+{time.perf_counter() - T0:.1f} s)")
+        phase_live(stores, paths)
+        log(f"phase 11: sharded ingest and querying (+{time.perf_counter() - T0:.1f} s)")
+        shard_launches, manifest = phase_shards(beds, mods, stores, paths)
+        for name, n in shard_launches.items():
+            launches[name] += n
+        log(f"phase 12: the server and the shard coordinator (+{time.perf_counter() - T0:.1f} s)")
+        launches["scan_join"] += phase_server(stores, manifest)
+        log(f"phases done (+{time.perf_counter() - T0:.1f} s)")
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()
         log(f"FAIL: {type(e).__name__}: {e}")

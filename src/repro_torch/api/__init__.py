@@ -1,23 +1,26 @@
-"""One query API over a store: ``connect`` -> :class:`Session`.
+"""One query API over every store transport.
 
-``connect(target)`` returns a :class:`LocalSession` — ``query`` /
-``explain`` / ``insert`` / ``delete`` / ``compact`` / ``metrics`` /
-``close`` — when the target is
+``connect(target)`` returns a :class:`Session` with the same seven
+methods — ``query`` / ``explain`` / ``insert`` / ``delete`` /
+``compact`` / ``metrics`` / ``close`` — whether the target is
 
-* an in-process :class:`~repro_torch.kg.store.TripleStore`, or
-* a full ``.kgz`` snapshot path, opened on ``device`` (``cuda`` unless the
-  caller asks for the CPU; no fallback) through the ``open_store`` cache.
+* an in-process store object (:class:`~repro_torch.kg.store.TripleStore` or
+  :class:`~repro_torch.live.delta.LiveStore`),
+* a ``.kgz`` snapshot path (full or delta chain; opened mutable by
+  default, immutable with ``read_only=True``) or a shard manifest, either
+  on ``device`` (``cuda`` unless the caller asks for the CPU; no
+  fallback), or
+* a running :mod:`repro_torch.serve.server` at ``"host:port"``.
 
-``query`` answers with a :class:`QueryResult`; failures raise the typed
-:mod:`repro_torch.api.errors` hierarchy.  A local session runs the
-planner/executor pipeline — including the small-batch fast path, kernel
-K4 on the card — so results, ordering and error semantics equal the JAX
-package's ``repro.api`` on the same store.
+``query`` always answers with a :class:`QueryResult`; failures always
+raise the typed :mod:`repro_torch.api.errors` hierarchy (same classes both
+sides of the wire).  A local session runs the same planner/executor
+pipeline the server runs — including the small-batch fast path — so
+results, ordering, and error semantics are identical across transports
+and equal the JAX package's ``repro.api`` on the same store.
 
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP.md Queue 1 item: live stores and delta snapshots (mutations on a
-session opened from a path; item 16), shard manifests (item 11), and a
-running server at ``"host:port"`` (item 17).
+``repro_torch.kg.query.solve`` / ``solve_text`` and
+``repro_torch.serve.client.Client`` are thin layers over this module.
 """
 
 from __future__ import annotations
@@ -80,8 +83,8 @@ class QueryResult:
 
 
 class Session:
-    """The transport-independent surface; ``connect`` hands back a
-    :class:`LocalSession`."""
+    """The transport-independent surface; ``connect`` hands back one of
+    the two concrete sessions below."""
 
     def query(self, text: str, limit: int | None = None) -> QueryResult:
         raise NotImplementedError
@@ -133,26 +136,25 @@ def _check_triples(triples) -> list[tuple]:
     return ts
 
 
-_NOT_PORTED = (
-    "{what} is not ported yet: it arrives with ROADMAP.md Queue 1 item "
-    "{item}; use repro.api for it"
-)
-
-
 class LocalSession(Session):
-    """In-process execution over a store object — the same
-    planner/executor pipeline (and small-batch fast path) a server would
-    dispatch through, at batch size 1.  Over a plain
-    :class:`~repro_torch.kg.store.TripleStore` mutations raise
-    :class:`ReadOnlyError`, as in the JAX package; a session opened from a
-    ``.kgz`` path without ``read_only`` would be a live store there, which
-    is not ported yet, so its mutations raise ``NotImplementedError``."""
+    """In-process execution over a store object — the same fused
+    planner/executor pipeline (and small-batch fast path) the server
+    dispatches through, at batch size 1.  Mutations need a
+    :class:`~repro_torch.live.delta.LiveStore`; over a plain
+    :class:`~repro_torch.kg.store.TripleStore` (or with ``read_only=True``)
+    they raise :class:`ReadOnlyError` exactly like a read-only server."""
 
-    def __init__(self, store, read_only: bool = True):
-        if hasattr(store, "view") and hasattr(store, "base"):
-            raise NotImplementedError(_NOT_PORTED.format(what="a live store", item=16))
+    def __init__(self, store, read_only: bool = False):
         self.store = store
-        self.read_only = read_only
+        # a live store carries (base, view); a plain TripleStore is
+        # immutable by construction — same duck test as kg.query.solve
+        self._live = store if (
+            hasattr(store, "view") and hasattr(store, "base")
+        ) else None
+        self.read_only = read_only or self._live is None
+
+    def _base(self):
+        return self._live.base if self._live is not None else self.store
 
     def _parse(self, text: str):
         from repro_torch.serve import algebra
@@ -167,20 +169,23 @@ class LocalSession(Session):
     def execute(self, q):
         """Low-level single-query execute: the parsed
         :class:`~repro_torch.serve.algebra.SelectQuery` through the planner/
-        executor, answered as the raw padded
-        :class:`~repro_torch.serve.exec.BatchResult`.  This is the one local
-        execution path — ``query`` and ``kg.query.solve`` both come through
-        here."""
+        executor (overlay view captured for a live store), answered as
+        the raw padded :class:`~repro_torch.serve.exec.BatchResult`.  This is
+        the one local execution path — ``query`` and the legacy
+        ``kg.query.solve`` shim both come through here."""
         from repro_torch.serve.exec import get_executor
 
-        ex = get_executor(self.store)
-        return ex.execute(ex.plan(q), [q])
+        ex = get_executor(self._base())
+        view = self._live.view() if self._live is not None else None
+        return ex.execute(ex.plan(q), [q], view=view)
 
     def query(
         self, text: str, limit: int | None = None, *, parsed=None
     ) -> QueryResult:
         """``parsed`` short-circuits the parse with an already-built
-        :class:`~repro_torch.serve.algebra.SelectQuery`."""
+        :class:`~repro_torch.serve.algebra.SelectQuery` — the shard fan-out
+        hands each in-process backend the query it parsed once for
+        routing, instead of re-parsing the text on every shard."""
         _check_limit(limit)
         q = parsed if parsed is not None else self._parse(text)
         t0 = time.perf_counter_ns()
@@ -198,23 +203,42 @@ class LocalSession(Session):
         from repro_torch.serve.exec import get_executor
 
         q = self._parse(text)
-        return get_executor(self.store).plan(q).explain()
+        return get_executor(self._base()).plan(q).explain()
 
-    def _writable(self, triples=None):
-        if triples is not None:
-            _check_triples(triples)
+    def _writable(self):
         if self.read_only:
             raise ReadOnlyError("store is read-only: mutation rejected")
-        raise NotImplementedError(_NOT_PORTED.format(what="a live store", item=16))
+        return self._live
 
     def insert(self, triples) -> dict:
-        self._writable(triples)
+        live = self._writable()
+        added = live.insert(_check_triples(triples))
+        return {
+            "inserted": added,
+            "n_total": live.n_triples,
+            "generation": live.generation,
+        }
 
     def delete(self, triples) -> dict:
-        self._writable(triples)
+        live = self._writable()
+        deleted, tombstoned = live.delete(_check_triples(triples))
+        return {
+            "deleted": deleted,
+            "tombstoned": tombstoned,
+            "n_total": live.n_triples,
+            "generation": live.generation,
+        }
 
     def compact(self) -> dict:
-        self._writable()
+        live = self._writable()
+        t0 = time.perf_counter_ns()
+        live.compact()
+        return {
+            "compacted": True,
+            "compact_ms": round((time.perf_counter_ns() - t0) / 1e6, 3),
+            "n_total": live.n_triples,
+            "generation": live.generation,
+        }
 
     def metrics(self) -> dict:
         from repro_torch.obs import get_registry
@@ -222,31 +246,100 @@ class LocalSession(Session):
         return {"metrics": get_registry().snapshot(), "signatures": {}}
 
 
-def connect(target, read_only: bool = False, device="cuda") -> Session:
-    """Open a :class:`LocalSession` on a store object or a ``.kgz`` path
-    (opened on ``device`` through the ``open_store`` cache).  A
-    ``"host:port"`` target (a running server), a shard manifest and a
-    delta snapshot raise ``NotImplementedError`` naming the ROADMAP item
-    that brings each."""
+class RemoteSession(Session):
+    """A socket client to a running server, answers normalized into the
+    same :class:`QueryResult` / typed-error surface as a local session.
+    (The transport lives in :mod:`repro_torch.serve.client`, imported lazily —
+    ``repro_torch.api`` stays importable below the serve layer.)"""
+
+    def __init__(
+        self, host: str, port: int, retry_s: float = 0.0, timeout: float = 30.0
+    ):
+        from repro_torch.serve.client import connect as _wire_connect
+
+        self._c = _wire_connect(host, port, retry_s=retry_s, timeout=timeout)
+
+    def query(self, text: str, limit: int | None = None) -> QueryResult:
+        resp = self._c.query(text, limit=limit)
+        return QueryResult(
+            vars=tuple(resp.get("vars", ())),
+            rows=[tuple(r) for r in resp.get("rows", ())],
+            n_total=int(resp.get("n_total", 0)),
+            agg_vars=tuple(resp.get("agg_vars", ())),
+            latency_ms=float(resp.get("latency_ms", 0.0)),
+            batch_size=int(resp.get("batch_size", 1)),
+            raw=resp,
+        )
+
+    def explain(self, text: str) -> str:
+        return self._c.explain(text)
+
+    def insert(self, triples) -> dict:
+        return self._c.insert(triples)
+
+    def delete(self, triples) -> dict:
+        return self._c.delete(triples)
+
+    def compact(self) -> dict:
+        return self._c.compact()
+
+    def metrics(self) -> dict:
+        return self._c.metrics()
+
+    def close(self) -> None:
+        self._c.close()
+
+
+def connect(
+    target,
+    read_only: bool = False,
+    retry_s: float = 0.0,
+    timeout: float = 30.0,
+    device="cuda",
+) -> Session:
+    """Open a :class:`Session` on anything query-shaped.
+
+    * a store object → :class:`LocalSession` over it as-is;
+    * ``"host:port"`` (when no such file exists) → :class:`RemoteSession`
+      (``retry_s`` keeps retrying the TCP connect — the CI smoke path);
+    * a shard-manifest path (``rdfize --shards N`` output) →
+      :class:`~repro_torch.shard.coordinator.ShardSession` over every shard
+      store, with scatter/gather merging that answers byte-identically
+      to the unsharded store;
+    * a ``.kgz`` path → :class:`LocalSession`; mutable
+      (:class:`~repro_torch.live.delta.LiveStore` over the loaded chain, delta
+      snapshots replayed) unless ``read_only=True``, which opens the
+      immutable cached store.
+
+    Manifests and ``.kgz`` paths open on ``device``.
+    """
     if not isinstance(target, (str, os.PathLike)):
         if not (hasattr(target, "n_triples") and hasattr(target, "decode_term")):
             raise BadRequestError(
                 f"cannot connect to {type(target).__name__}: expected a "
                 "store object, a .kgz path, a shard manifest, or 'host:port'"
             )
-        return LocalSession(target, read_only=True)
+        return LocalSession(target, read_only=read_only)
     target = os.fspath(target)
     m = _HOST_PORT.match(target)
     if m and not os.path.exists(target):
-        raise NotImplementedError(
-            _NOT_PORTED.format(what="a remote query server session", item=17))
+        return RemoteSession(
+            m.group("host"), int(m.group("port")),
+            retry_s=retry_s, timeout=timeout,
+        )
     from repro_torch.kg import persist
 
     if persist.is_manifest(target):
-        raise NotImplementedError(_NOT_PORTED.format(what="a shard manifest", item=11))
-    if persist.peek_meta(target)[3] != persist.KIND_FULL:
-        persist.load_chain(target)  # a delta snapshot: raises (item 16)
-    return LocalSession(persist.open_store(target, device=device), read_only=read_only)
+        from repro_torch.shard.coordinator import ShardSession, open_shard_group
+
+        return ShardSession(
+            open_shard_group(target, read_only=read_only, device=device)
+        )
+    if read_only:
+        return LocalSession(
+            persist.open_store(target, device=device), read_only=True
+        )
+    return LocalSession(persist.load_chain(target, device=device))
 
 
 def _peek_schemas(plan, data_root: str) -> "dict[str, tuple[str, ...]]":

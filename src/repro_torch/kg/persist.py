@@ -6,9 +6,9 @@ a flat array, so the format is mmap-friendly and versioned.  v3 adds
 id, a monotonically increasing *generation* counter, and a *kind* bit that
 distinguishes a full store from a **delta** snapshot (the net overlay of a
 live store — new terms plus inserted and tombstoned id-triples — resolved
-against its parent by :func:`load_chain`).  This package reads and writes
-full snapshots; delta snapshots and live stores arrive with ROADMAP.md
-Queue 1 item 16, and until then ``save_delta``/``load_chain`` raise.
+against its parent by :func:`load_chain`).  The bytes are the JAX
+package's: a store or a live overlay saved by either package loads in the
+other.
 
 Full snapshot (kind 0):
 
@@ -135,6 +135,13 @@ def save(
     return sid
 
 
+def _pack_strings(strings) -> "tuple[np.ndarray, np.ndarray]":
+    encoded = [s.encode("utf-8") for s in strings]
+    blob = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+    off = np.cumsum([len(e) for e in encoded], dtype=np.int64)
+    return blob, off
+
+
 def _unpack_strings(blob: np.ndarray, off: np.ndarray) -> "list[str]":
     raw = blob.tobytes()
     out, start = [], 0
@@ -144,17 +151,45 @@ def _unpack_strings(blob: np.ndarray, off: np.ndarray) -> "list[str]":
     return out
 
 
-_LIVE_NOT_PORTED = (
-    "live stores (delta snapshots, LiveStore) are not ported yet: they "
-    "arrive with ROADMAP.md Queue 1 item 16 (live/delta.py and the "
-    "executor's overlay arm); use repro.kg.persist for them"
-)
-
-
 def save_delta(live, path: str, parent_path: str) -> int:
-    """Write a ``LiveStore``'s net overlay as a delta snapshot — not ported
-    yet (ROADMAP item 16)."""
-    raise NotImplementedError(_LIVE_NOT_PORTED)
+    """Write a ``LiveStore``'s *net* overlay as a delta snapshot chained to
+    the parent full snapshot at ``parent_path`` (which must already have
+    been saved/loaded so its snapshot id is known).  Chains are one hop:
+    a delta always references a full snapshot, and the overlay it records
+    is the live store's entire current overlay."""
+    base = live.base
+    parent_sid = getattr(base, "_snapshot_id", None)
+    if parent_sid is None:
+        raise ValueError(
+            "save_delta: parent store has no snapshot id — "
+            "save/load the parent .kgz first"
+        )
+    ins = sorted(live._inserted)
+    dels = sorted(live._tomb)
+    ins_cols = np.asarray(ins, np.int32).reshape(-1, 3)
+    del_cols = np.asarray(dels, np.int32).reshape(-1, 3)
+    terms_blob, terms_off = _pack_strings(live._new_terms)
+    sid = (
+        _crc_chain(0, (ins_cols, del_cols, terms_blob)) << 20
+    ) | (live.generation & 0xFFFFF)
+    members = {
+        "meta": np.asarray(
+            [FORMAT_VERSION, len(ins), live.generation, KIND_DELTA], np.int64
+        ),
+        "lineage": np.asarray([sid, parent_sid], np.int64),
+        "parent": np.frombuffer(parent_path.encode("utf-8"), dtype=np.uint8),
+        "term_base": np.asarray([base.n_terms], np.int64),
+        "terms_blob": terms_blob,
+        "terms_off": terms_off,
+        "ins_s": ins_cols[:, 0].copy(),
+        "ins_p": ins_cols[:, 1].copy(),
+        "ins_o": ins_cols[:, 2].copy(),
+        "del_s": del_cols[:, 0].copy(),
+        "del_p": del_cols[:, 1].copy(),
+        "del_o": del_cols[:, 2].copy(),
+    }
+    _write_npz(path, members)
+    return sid
 
 
 def peek_meta(path: str) -> "tuple[int, int, int, int]":
@@ -169,10 +204,47 @@ def peek_meta(path: str) -> "tuple[int, int, int, int]":
     return version, n, generation, kind
 
 
-def load_chain(path: str):
-    """Open a snapshot as a live store — not ported yet (ROADMAP item 16).
-    A full snapshot opens read-only with :func:`open_store`."""
-    raise NotImplementedError(_LIVE_NOT_PORTED)
+def load_chain(path: str, device="cuda"):
+    """Open a snapshot as a :class:`repro_torch.live.delta.LiveStore` on
+    ``device`` (``cuda`` unless the caller asks for the CPU): a full
+    snapshot becomes a live store with an empty overlay; a delta snapshot
+    resolves its parent (path stored in the file, relative to the delta
+    file's directory), verifies the lineage (parent snapshot id and term
+    count must match what the delta recorded), and replays the overlay."""
+    from repro_torch.live.delta import LiveStore
+
+    version, _, generation, kind = peek_meta(path)
+    if not (_MIN_VERSION <= version <= FORMAT_VERSION):
+        raise ValueError(
+            f"{path}: kgz format v{version}, this build reads "
+            f"v{_MIN_VERSION}..v{FORMAT_VERSION}"
+        )
+    if kind == KIND_FULL:
+        return LiveStore(open_store(path, device=device))
+    with np.load(path) as z:
+        parent_rel = z["parent"].tobytes().decode("utf-8")
+        parent_sid = int(z["lineage"][1])
+        term_base = int(z["term_base"][0])
+        new_terms = _unpack_strings(z["terms_blob"], z["terms_off"])
+        ins = np.stack([z["ins_s"], z["ins_p"], z["ins_o"]], axis=1)
+        dels = np.stack([z["del_s"], z["del_p"], z["del_o"]], axis=1)
+    parent_path = parent_rel
+    if not os.path.isabs(parent_path):
+        parent_path = os.path.join(os.path.dirname(path) or ".", parent_path)
+    base = open_store(parent_path, device=device)
+    if getattr(base, "_snapshot_id", None) != parent_sid:
+        raise ValueError(
+            f"{path}: parent snapshot id mismatch — {parent_path} is not "
+            "the snapshot this delta was chained to"
+        )
+    if base.n_terms != term_base:
+        raise ValueError(
+            f"{path}: parent has {base.n_terms} terms, delta expects "
+            f"{term_base} — lineage mismatch"
+        )
+    live = LiveStore(base)
+    live._apply_snapshot(new_terms, ins, dels, generation)
+    return live
 
 
 _OPEN_STORES: OrderedDict[tuple, TripleStore] = OrderedDict()
@@ -185,6 +257,24 @@ _OPEN_STORES: OrderedDict[tuple, TripleStore] = OrderedDict()
 _OPEN_STORES_MAX = 16
 
 
+def set_open_store_cache_size(max_stores: int) -> None:
+    """Resize the :func:`open_store` LRU (evicting oldest entries now if
+    shrinking).  A coordinator serving ``N`` shards should ensure the cap
+    is at least ``N`` + headroom; :mod:`repro_torch.shard.coordinator` calls
+    this when a manifest names more shards than the current cap."""
+    global _OPEN_STORES_MAX
+    if max_stores < 1:
+        raise ValueError("open_store cache needs room for at least 1 store")
+    _OPEN_STORES_MAX = max_stores
+    while len(_OPEN_STORES) > _OPEN_STORES_MAX:
+        _OPEN_STORES.popitem(last=False)
+
+
+def open_store_cache_info() -> "tuple[int, int]":
+    """``(resident stores, cap)`` — test/diagnostic surface."""
+    return len(_OPEN_STORES), _OPEN_STORES_MAX
+
+
 def open_store(path: str, device="cuda") -> TripleStore:
     """Cached :func:`load`: the validated store (with its device index
     copies, lazy term maps, value tables and compiled query pipelines) is
@@ -194,7 +284,7 @@ def open_store(path: str, device="cuda") -> TripleStore:
     A rewritten file changes the key and reloads; the generation component
     catches a same-second same-size rewrite (mtime_ns granularity is
     filesystem-dependent, and compaction rewrites in place), and the LRU
-    cap (``_OPEN_STORES_MAX``) bounds resident stores — every
+    cap (:func:`set_open_store_cache_size`) bounds resident stores — every
     rewrite generation makes a *new* key, so without eviction a long-lived
     coordinator would accumulate one dead store per compaction."""
     st = os.stat(path)
@@ -345,6 +435,19 @@ def load(path: str, device="cuda") -> TripleStore:
 # barrier merged.  Shard paths are stored relative to the manifest.
 
 MANIFEST_FORMAT = "repro.shard/1"
+
+
+def save_manifest(path: str, manifest: dict) -> None:
+    import json
+
+    if manifest.get("format") != MANIFEST_FORMAT:
+        raise ValueError(
+            f"manifest format must be {MANIFEST_FORMAT!r}, "
+            f"got {manifest.get('format')!r}"
+        )
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(manifest, f, indent=2, sort_keys=True)
+        f.write("\n")
 
 
 def load_manifest(path: str) -> dict:

@@ -257,7 +257,8 @@ class Bindings:
 
 def solve(store: TripleStore, patterns: list[TriplePattern]) -> Bindings:
     """Conjunctive BGP evaluation — a shim over the unified query API:
-    :class:`repro_torch.api.LocalSession` resolves the store and runs the same
+    :class:`repro_torch.api.LocalSession` resolves the store (plain or
+    live, overlay view captured per call) and runs the same
     planner/executor pipeline the query server dispatches through.
     Kept for callers that want *encoded* (term-id) binding tables; new
     code should use ``repro_torch.api.connect``.  (Lazy import: ``api`` layers

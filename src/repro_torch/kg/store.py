@@ -343,6 +343,9 @@ class TripleStore:
         index (the live overlay's duplicate/tombstone resolution path)."""
         idx = self.indexes["spo"]
         c0, c1, c2 = idx.cols
+        # keys of the columns' dtype: a Python int makes numpy search an
+        # int64 copy of the whole column (a 1M-row store: ~0.8 ms a call)
+        s, p, o = (c0.dtype.type(x) for x in (s, p, o))
         lo = int(np.searchsorted(c0, s, side="left"))
         hi = int(np.searchsorted(c0, s, side="right"))
         lo2 = lo + int(np.searchsorted(c1[lo:hi], p, side="left"))

@@ -16,8 +16,9 @@ Build the snapshot with ``python -m repro_torch.launch.rdfize ... --emit kgz``
 ``repro.launch.query`` plus ``--device`` (default ``cuda``; a host without a
 card fails rather than falling back).  The store is opened through the
 ``open_store`` cache, so a query phase and a ``--bench`` phase in one
-process load and validate the snapshot once.  A shard manifest exits with
-an error naming the ROADMAP item that brings sharding.
+process load and validate the snapshot once.  A shard manifest
+(``rdfize --emit kgz --shards N``) is answered through the scatter/gather
+session over every shard, each opened on ``--device``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import sys
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.query")
-    ap.add_argument("--kg", required=True, help=".kgz snapshot path")
+    ap.add_argument("--kg", required=True, help=".kgz snapshot or shard manifest path")
     ap.add_argument("query", nargs="*",
                     help="SPARQL-lite query, or bare triple pattern(s)")
     ap.add_argument("--limit", type=int, default=None, help="max rows printed")
@@ -55,15 +56,26 @@ def main(argv=None) -> None:
     if args.trace:
         obs.enable_tracing()
     if persist.is_manifest(args.kg):
-        ap.error("a shard manifest is not ported yet: sharding arrives with "
-                 "ROADMAP.md Queue 1 item 11; use repro.launch.query for it")
-    store = persist.open_store(args.kg, device=args.device)
-    print(
-        f"[query] {store.n_triples} triples, {store.n_terms} terms "
-        f"from {args.kg} on {store.device}",
-        file=sys.stderr,
-    )
-    session = api.connect(store)
+        # a sharded KG: connect() opens every shard behind the
+        # scatter/gather session; --bench still needs one store, so
+        # point it at shard 0
+        manifest = persist.load_manifest(args.kg)
+        store = persist.open_store(manifest["shards"][0]["abs_path"],
+                                   device=args.device)
+        session = api.connect(args.kg, device=args.device)
+        print(
+            f"[query] {manifest['dictionary']['n_triples']} triples across "
+            f"{manifest['n_shards']} shards from {args.kg} on {store.device}",
+            file=sys.stderr,
+        )
+    else:
+        store = persist.open_store(args.kg, device=args.device)
+        print(
+            f"[query] {store.n_triples} triples, {store.n_terms} terms "
+            f"from {args.kg} on {store.device}",
+            file=sys.stderr,
+        )
+        session = api.connect(store)
 
     if args.query:
         text = " . ".join(args.query)

@@ -4,15 +4,17 @@
         --mapping mappings.ttl --data-root data/ --out kg.nt \
         [--device cuda|cpu] [--engine optimized|naive] [--join sorted|hash] \
         [--stream] [--block-rows N] [--emit nt|kgz] [--explain-mapping] \
-        [--no-mapping-plan] [--trace OUT.json]
+        [--no-mapping-plan] [--shards N [--shard-workers M]] [--trace OUT.json]
 
 The same flags as ``repro.launch.rdfize`` plus ``--device`` (default
 ``cuda``; a host without a card fails rather than falling back).  It runs
 the optimized engine (eager, or block-streamed with ``--stream``) or the
 naive engine, with the sorted or the hash PJTT, and writes N-Triples or
 (``--emit kgz``) a queryable ``.kgz`` store, byte-identical to the JAX
-package's CLI.  ``--shards`` and ``--shard-workers`` are not ported yet and
-exit with an error naming the ROADMAP item that brings them.
+package's CLI.  ``--emit kgz --shards N`` partitions the KG by subject
+hash into N shard stores plus a manifest at ``--out`` (same bytes as the
+JAX package's); ``--shard-workers M`` builds rule groups, then shard
+stores, in M spawned worker processes, each with its own CUDA context.
 
 Mirrors the paper's tool: parse the RML document, plan, execute with the
 PTT/PJTT operators, emit N-Triples, print the per-predicate φ statistics.
@@ -21,13 +23,6 @@ PTT/PJTT operators, emit N-Triples, print the per-predicate φ statistics.
 from __future__ import annotations
 
 import argparse
-
-# options not ported yet: the ROADMAP.md item (Queue 1) that brings them
-_NOT_PORTED = (
-    "is not ported yet: it arrives with ROADMAP.md Queue 1 item {item} ({what}); "
-    "use repro.launch.rdfize for it"
-)
-
 
 def _print_stats(stats) -> None:
     for pred, st in stats.items():
@@ -65,17 +60,17 @@ def main(argv=None):
                     help="output format: N-Triples text or a queryable .kgz "
                          "snapshot (repro_torch.kg)")
     ap.add_argument("--shards", type=int, default=0, metavar="N",
-                    help="sharded .kgz output (not ported yet)")
-    ap.add_argument("--shard-workers", type=int, default=None, metavar="M",
-                    help="worker processes for sharded builds (not ported yet)")
+                    help="with --emit kgz: partition the KG by subject "
+                         "hash into N shard stores plus a manifest at "
+                         "--out (serve it with launch.serve, query it "
+                         "with repro_torch.api.connect)")
+    ap.add_argument("--shard-workers", type=int, default=0, metavar="M",
+                    help="build rule groups, then shard stores, across M "
+                         "spawned worker processes (default: serial "
+                         "in-process)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record a Chrome trace-event JSON of the run")
     args = ap.parse_args(argv)
-
-    for asked, flag in ((bool(args.shards), "--shards"),
-                        (args.shard_workers is not None, "--shard-workers")):
-        if asked:
-            ap.error(f"{flag} " + _NOT_PORTED.format(item=11, what="sharded ingest"))
 
     from repro_torch import obs
     from repro_torch.core.executor import create_kg
@@ -92,6 +87,7 @@ def main(argv=None):
         doc = parser.parse_file(args.mapping)
     print(f"[rdfize] {len(doc.triples_maps)} triples maps from {args.mapping}")
     mapping_plan = not args.no_mapping_plan
+    mplan = None
     if mapping_plan:
         from repro_torch.rml.plan import build_plan
 
@@ -99,6 +95,49 @@ def main(argv=None):
         print(f"[rdfize] plan: {len(mplan.exec_plan.ops)} rules over "
               f"{len(mplan.sources)} sources -> {len(mplan.groups)} "
               f"groups ({len(mplan.shared)} shared terms factored)")
+
+    if args.shards and args.emit != "kgz":
+        ap.error("--shards needs --emit kgz (shard stores are .kgz snapshots)")
+
+    group_parallel = (
+        args.out is not None
+        and args.emit == "kgz"
+        and args.shards
+        and args.shard_workers > 1
+        and mplan is not None
+        and len(mplan.groups) > 1
+    )
+    if group_parallel:
+        # whole rule groups are the unit of multiprocess work: each
+        # worker builds its group's sub-KG, the parent unions the
+        # rendered triples and hash-partitions them into shard stores
+        from repro_torch.shard.ingest import ingest_mapping_sharded
+
+        with open(args.mapping, encoding="utf-8") as f:
+            mapping_text = f.read()
+        with obs.span("create_kg_grouped", cat="rdfize",
+                      groups=len(mplan.groups), workers=args.shard_workers):
+            manifest, stats, n_triples = ingest_mapping_sharded(
+                mapping_text, args.data_root, args.out, args.shards,
+                workers=args.shard_workers,
+                engine_opts=dict(
+                    engine=args.engine, join_strategy=args.join,
+                    batch_size=args.batch_size, stream=args.stream,
+                    block_rows=args.block_rows,
+                ),
+                device=args.device,
+            )
+        print(f"[rdfize] {n_triples} unique triples "
+              f"({len(mplan.groups)} rule groups in parallel)")
+        _print_stats(stats)
+        sizes = ", ".join(str(s["n_triples"]) for s in manifest["shards"])
+        print(f"[rdfize] wrote {n_triples}-triple sharded KG "
+              f"({args.shards} shards: {sizes} triples) — manifest "
+              f"at {args.out}")
+        if args.trace:
+            n_ev = obs.save_trace(args.trace)
+            print(f"[rdfize] wrote {n_ev}-event trace to {args.trace}")
+        return None
 
     with obs.span("create_kg", cat="rdfize", engine=args.engine,
                   stream=args.stream, device=args.device):
@@ -116,7 +155,21 @@ def main(argv=None):
     print(f"[rdfize] {result.n_triples} unique triples in "
           f"{result.wall_time_s:.2f}s ({result.engine} engine, {args.device})")
     _print_stats(result.stats)
-    if args.out and args.emit == "kgz":
+    if args.out and args.emit == "kgz" and args.shards:
+        from repro_torch.shard.ingest import shard_store
+
+        with obs.span("emit_sharded", cat="rdfize", out=args.out,
+                      shards=args.shards):
+            store = result.to_store(device=args.device)
+            manifest = shard_store(
+                store, args.out, args.shards,
+                workers=args.shard_workers,
+            )
+        sizes = ", ".join(str(s["n_triples"]) for s in manifest["shards"])
+        print(f"[rdfize] wrote {store.n_triples}-triple sharded KG "
+              f"({args.shards} shards: {sizes} triples) — manifest "
+              f"at {args.out}")
+    elif args.out and args.emit == "kgz":
         from repro_torch.kg import persist
 
         with obs.span("emit_kgz", cat="rdfize", out=args.out):

@@ -14,13 +14,15 @@ The serving half of the KG lifecycle, layered over ``repro_torch.kg`` stores:
   through one launch of kernel K4 (``csrc/scan_join.cu``) on the card.
 * :mod:`repro_torch.serve.values`  — literal value side tables (numeric/string
   ranks) decoded once per store for FILTER evaluation on term ids.
-* the socket server and client are not ported yet (ROADMAP.md Queue 1
-  item 17).
+* :mod:`repro_torch.serve.server`  — long-lived socket server micro-batching
+  concurrent clients by plan signature; :mod:`repro_torch.serve.client`
+  talks to it (newline-delimited JSON, the JAX package's protocol).
 * :mod:`repro_torch.serve.oracle`  — the naive full-algebra oracle anchoring the
   tests.
 
-Entry points: ``repro_torch.api.connect`` and
-``python -m repro_torch.launch.query --kg out.kgz``.
+Entry points: ``repro_torch.api.connect``,
+``python -m repro_torch.launch.query --kg out.kgz`` and
+``python -m repro_torch.launch.serve --kg out.kgz``.
 """
 
 from repro_torch.serve.algebra import Count, SelectQuery, parse_select

@@ -32,8 +32,12 @@ value) with a term-id tie-break.  A lexicographic sort is successive
 stable argsorts, least significant key first (``lax.sort(num_keys=k,
 is_stable=True)`` in the JAX package).
 
-Live stores' overlay views (a second scan arm over base ⊕ delta) are not
-ported yet: they arrive with ROADMAP.md Queue 1 item 16.
+A live store's overlay view (``repro_torch.live.delta.OverlayView``) adds a
+second scan arm: every reader range-scans the base index and the re-sorted
+delta index with the same bounds, counts live base rows through the view's
+per-order alive prefix sums (tombstones masked), rank-selects the j-th live
+base row by a search over those sums, and emits base matches then delta
+matches — all batched over ``B`` like the rest of the pipeline.
 """
 
 from __future__ import annotations
@@ -59,11 +63,6 @@ I32_MAX = 2**31 - 1
 UNBOUND = -1
 _MAX_GROW_ROUNDS = 12
 _FP_UNSET = object()  # fast-path cache sentinel (None = ineligible plan)
-_OVERLAY_NOT_PORTED = (
-    "live-store overlay views are not ported yet: they arrive with "
-    "ROADMAP.md Queue 1 item 16 (live/delta.py and the executor's overlay "
-    "arm); use repro.serve for them"
-)
 
 
 def plan_label(sig: tuple) -> str:
@@ -210,6 +209,15 @@ def _arange(k: int, device) -> torch.Tensor:
     return torch.arange(k, dtype=torch.int32, device=device)
 
 
+def _rank_select(alive, start_rank, k, store_n: int):
+    """Sorted positions of live base rows: the smallest ``r`` with
+    ``alive[r + 1]`` past rank ``start_rank + k`` (``start_rank`` is
+    ``alive[lo]`` of the row's range, ``k`` the match index within it)."""
+    target = (start_rank + k + 1).contiguous()
+    r = torch.searchsorted(alive, target, out_int32=True) - 1
+    return r.clamp(0, store_n - 1)
+
+
 def _same_prev(c):
     """Row r equals row r - 1 (False for the first row)."""
     return torch.cat([torch.zeros_like(c[:, :1], dtype=torch.bool),
@@ -228,6 +236,9 @@ class _Lowerer:
         packed: bool,
         prim_rounds: dict[int, int] | None = None,
         order_is_tid: bool = False,
+        overlay: bool = False,
+        delta_cap: int = 1,
+        delta_rounds: int = 1,
     ):
         self.plan = plan
         self.caps = caps
@@ -237,6 +248,13 @@ class _Lowerer:
         self.order_is_tid = order_is_tid
         self.rounds = max(1, int(store_n).bit_length())
         self.prim_rounds = prim_rounds or {}
+        # live-overlay second scan arm (see repro_torch.live.delta.OverlayView):
+        # every reader range-scans the base index AND the re-sorted delta
+        # index, rank-selects non-tombstoned base rows through per-order
+        # alive prefix sums, and emits base matches then delta matches
+        self.overlay = overlay
+        self.delta_cap = delta_cap
+        self.delta_rounds = delta_rounds
         self.scan_index = {s.node_id: i for i, s in enumerate(plan.scans)}
         self.needed: dict[str, torch.Tensor] = {}
         # the column sequence each node's rows are known to be sorted by
@@ -249,6 +267,10 @@ class _Lowerer:
         self.scan_cols: dict[int, tuple] = {}
         self.scan_keys: dict[int, tuple | None] = {}
         self.scan_prim: dict[int, torch.Tensor | None] = {}
+        self.dscan_cols: dict[int, tuple] = {}
+        self.dscan_keys: dict[int, tuple | None] = {}
+        self.alive: dict[int, torch.Tensor] = {}
+        self.dn = 0
         self.vt_arrays: tuple | None = None
         self.consts = None
         self.fops = None
@@ -264,6 +286,26 @@ class _Lowerer:
             "prim_start": self.scan_prim[node.node_id],
             "prim_rounds": self.prim_rounds[node.node_id],
         }
+
+    def _delta_arm(self, node, lo, hi, lo_q, hi_q):
+        """The overlay's merged run per query (or per left row): live base
+        rows in ``[lo, hi)`` counted through the alive prefix sums, and the
+        delta index's rows inside the same bounds.  Returns ``(alive,
+        alive[lo], nb, dlo, nd)``."""
+        A = self.alive[node.node_id]
+        top = A.shape[0] - 1  # an empty base's single dummy row: A = [0]
+        a_lo = A[lo.clamp(max=top)]
+        nb = A[hi.clamp(max=top)] - a_lo
+        dc0, dc1, dc2 = self.dscan_cols[node.node_id]
+        dlo, dhi = _range_search(
+            self.dscan_keys[node.node_id], dc0, dc1, dc2,
+            lo_q, hi_q, self.key_bits, self.delta_rounds,
+        )
+        # clamp to the live delta rows: the wildcard upper bound packs level
+        # with the pad rows' sentinel id, so pads fall in range
+        dlo = dlo.clamp(max=self.dn)
+        nd = dhi.clamp(max=self.dn) - dlo
+        return A, a_lo, nb, dlo, nd
 
     def _ar(self, k: int) -> torch.Tensor:
         return _arange(k, self.dev)
@@ -298,22 +340,44 @@ class _Lowerer:
             **self._search_args(node),
         )
         by_pos = {perm3[j]: (c0, c1, c2)[j] for j in range(3)}
-        count = torch.where(self.qvalid, hi - lo, 0)
+        if self.overlay:
+            # base rows are counted through the alive prefix sums (masking
+            # tombstones), the delta index is range-scanned with the same
+            # bounds, and output rows are base matches then delta matches
+            A, a_lo, nb, dlo, nd = self._delta_arm(node, lo, hi, lo_q, hi_q)
+            count = torch.where(self.qvalid, nb + nd, 0)
+        else:
+            count = torch.where(self.qvalid, hi - lo, 0)
         if not node.out_vars:  # all-constant pattern: pure existence filter
             return {}, count.clamp(max=1)
         self.needed[f"scan{node.node_id}"] = count
         # rows come out in index order: sorted by the variable positions in
-        # the order's (primary, secondary, tertiary) sequence
+        # the order's (primary, secondary, tertiary) sequence — except under
+        # an overlay, where delta matches append after the base run (the
+        # tail determinism sort restores output order)
         var_by_pos = dict(node.var_slots)
-        self._sorted[node.node_id] = tuple(
+        self._sorted[node.node_id] = () if self.overlay else tuple(
             var_by_pos[pos] for pos in perm3 if pos in var_by_pos
         )
         ar = self._ar(cap)[None, :]
-        r = (lo[:, None] + ar).clamp(0, self.store_n - 1)
         valid = ar < count[:, None]
-        cols = {v: by_pos[pos][r] for pos, v in node.var_slots}
+        if self.overlay:
+            in_base = ar < nb[:, None]
+            rb = _rank_select(A, a_lo[:, None], ar, self.store_n)
+            rd = (dlo[:, None] + (ar - nb[:, None])).clamp(0, self.delta_cap - 1)
+            dby_pos = {perm3[k]: self.dscan_cols[node.node_id][k] for k in range(3)}
+
+            def gather(pos):
+                return torch.where(in_base, by_pos[pos][rb], dby_pos[pos][rd])
+        else:
+            r = (lo[:, None] + ar).clamp(0, self.store_n - 1)
+
+            def gather(pos):
+                return by_pos[pos][r]
+
+        cols = {v: gather(pos) for pos, v in node.var_slots}
         if node.eq_pairs:
-            pat_vals = {pos: by_pos[pos][r] for pos in range(3)}
+            pat_vals = {pos: gather(pos) for pos in range(3)}
             for pa, pb in node.eq_pairs:
                 valid = valid & (pat_vals[pa] == pat_vals[pb])
             return _compact(cols, valid, cap)[:2]
@@ -358,16 +422,28 @@ class _Lowerer:
             primary_q=primary_q if self.packed else None,
             **self._search_args(node),
         )
-        cnt = torch.where(lvalid, hi - lo, 0)
+        if self.overlay:
+            # merged per-row match count: live base rows (alive-prefix
+            # masked) plus delta rows in the same bounds — the second
+            # range-scan arm, per left row
+            A, a_lo, nb, dlo, nd = self._delta_arm(node, lo, hi, lo_q, hi_q)
+            cnt = torch.where(lvalid, nb + nd, 0)
+        else:
+            A = a_lo = nb = dlo = None
+            cnt = torch.where(lvalid, hi - lo, 0)
 
         left_sorted = self._sorted.get(node.left.node_id, ())
         # expansion preserves left row order and emits each row's matches
         # in index order, so sortedness extends iff the left rows were
-        # totally ordered (sorted by every left column)
+        # totally ordered (sorted by every left column) — and the index
+        # order claim fails under an overlay (delta matches append after
+        # the base run per left row)
         if set(left_sorted) >= set(node.left.out_vars):
             free_by_pos = dict(node.free_slots)
-            self._sorted[node.node_id] = left_sorted + tuple(
-                free_by_pos[pos] for pos in perm3 if pos in free_by_pos
+            self._sorted[node.node_id] = () if self.overlay else (
+                left_sorted + tuple(
+                    free_by_pos[pos] for pos in perm3 if pos in free_by_pos
+                )
             )
         if node.kind == "left" and node.free_slots:
             # backfill rows append after the matches: order lost
@@ -380,9 +456,16 @@ class _Lowerer:
             return _compact(lcols, lvalid & (cnt > 0), cl)[:2]
 
         by_pos = {perm3[j]: (c0, c1, c2)[j] for j in range(3)}
+        dby_pos = (
+            {perm3[j]: self.dscan_cols[node.node_id][j] for j in range(3)}
+            if self.overlay else None
+        )
         cap = self.caps[f"bindC{node.node_id}"]
         if node.eq_pairs:
-            return self._bind_join_grid(node, lcols, lvalid, lo, cnt, by_pos, cap)
+            return self._bind_join_grid(
+                node, lcols, lvalid, lo, cnt, by_pos, cap,
+                A=A, a_lo=a_lo, nb=nb, dlo=dlo, dby_pos=dby_pos,
+            )
         # packed expansion: out row j belongs to the left row whose count
         # prefix-sum passes j (a log-width searchsorted), so matches land
         # directly packed — no (rows x fan-out) grid, no fan-out capacity,
@@ -393,8 +476,14 @@ class _Lowerer:
         rowidx = torch.searchsorted(cum, j, right=True, out_int32=True)
         rowc = rowidx.clamp(0, cl - 1)
         prev = torch.where(rowc > 0, _gather(cum, (rowc - 1).clamp(min=0)), 0)
-        k = j - prev  # match index within this left row's run
-        r = (_gather(lo, rowc) + k).clamp(0, self.store_n - 1)
+        k = j - prev  # match index within this left row's merged run
+        if self.overlay:
+            nb_r = _gather(nb, rowc)
+            in_base = k < nb_r
+            rb = _rank_select(A, _gather(a_lo, rowc), k, self.store_n)
+            rd = (_gather(dlo, rowc) + (k - nb_r)).clamp(0, self.delta_cap - 1)
+        else:
+            r = (_gather(lo, rowc) + k).clamp(0, self.store_n - 1)
         valid_out = j < total.clamp(max=cap)[:, None]
         out_vals = {}
         for v in node.out_vars:
@@ -402,7 +491,10 @@ class _Lowerer:
                 vals = _gather(lcols[v], rowc)
             else:
                 pos = next(p for p, fv in node.free_slots if fv == v)
-                vals = by_pos[pos][r]
+                if self.overlay:
+                    vals = torch.where(in_base, by_pos[pos][rb], dby_pos[pos][rd])
+                else:
+                    vals = by_pos[pos][r]
             out_vals[v] = torch.where(valid_out, vals, UNBOUND)
         if node.kind == "left":
             # backfill: left rows with no match append after the matches,
@@ -418,18 +510,31 @@ class _Lowerer:
         self.needed[f"bindC{node.node_id}"] = total
         return out_vals, total.clamp(max=cap)
 
-    def _bind_join_grid(self, node, lcols, lvalid, lo, cnt, by_pos, cap):
+    def _bind_join_grid(self, node, lcols, lvalid, lo, cnt, by_pos, cap,
+                        A=None, a_lo=None, nb=None, dlo=None, dby_pos=None):
         """Grid expansion fallback for patterns with repeated free
         variables: pair validity depends on the gathered values, so the
-        (rows x fan-out) grid plus a compaction pass is unavoidable."""
+        (rows x fan-out) grid plus a compaction pass is unavoidable.
+        Under an overlay the grid covers each row's merged run — the
+        first ``nb`` slots rank-select live base rows, the rest gather
+        from the delta index."""
         B, cl = lvalid.shape
         m = self.caps[f"bindM{node.node_id}"]
         self.needed[f"bindM{node.node_id}"] = cnt.amax(dim=1).clamp(min=0)
         offs = self._ar(m)
-        ridx = (lo[:, :, None] + offs[None, None, :]).clamp(0, self.store_n - 1)
+        if self.overlay:
+            in_base = offs[None, None, :] < nb[:, :, None]
+            rb = _rank_select(A, a_lo[:, :, None], offs[None, None, :], self.store_n)
+            rd = (dlo[:, :, None] + (offs[None, None, :] - nb[:, :, None])).clamp(
+                0, self.delta_cap - 1)
 
-        def grid(pos):
-            return by_pos[pos][ridx]
+            def grid(pos):
+                return torch.where(in_base, by_pos[pos][rb], dby_pos[pos][rd])
+        else:
+            ridx = (lo[:, :, None] + offs[None, None, :]).clamp(0, self.store_n - 1)
+
+            def grid(pos):
+                return by_pos[pos][ridx]
 
         within = offs[None, None, :] < cnt[:, :, None]
         pairmask = within & lvalid[:, :, None]
@@ -900,12 +1005,15 @@ class _Lowerer:
             )
         raise TypeError(f"unknown plan node {node!r}")
 
-    def run(self, scan_cols_flat, scan_keys_flat, scan_prim_flat, vt_arrays,
-            consts, fops, qvalid, qlimit):
+    def run(self, scan_cols_flat, scan_keys_flat, scan_prim_flat,
+            dscan_cols_flat, dscan_keys_flat, alive_flat, dn,
+            vt_arrays, consts, fops, qvalid, qlimit):
         """One dispatch over the batch: ``consts`` ``[B, n_scans, 3]``,
         ``fops`` ``[B, n_filter_ops]``, ``qvalid`` ``[B]``, ``qlimit``
-        ``[B]``.  Returns ``(out_cols, n, needed)``: the root's columns
-        ``[B, cap]``, its counts ``[B]`` and each capacity's need ``[B]``."""
+        ``[B]``; the ``dscan_*`` / ``alive_flat`` / ``dn`` (live delta
+        rows) operands feed the overlay arm.  Returns ``(out_cols, n,
+        needed)``: the root's columns ``[B, cap]``, its counts ``[B]`` and
+        each capacity's need ``[B]``."""
         self.scan_cols = {
             s.node_id: scan_cols_flat[3 * i: 3 * i + 3]
             for i, s in enumerate(self.plan.scans)
@@ -918,6 +1026,18 @@ class _Lowerer:
             s.node_id: scan_prim_flat[i] if self.packed else None
             for i, s in enumerate(self.plan.scans)
         }
+        self.dscan_cols = {
+            s.node_id: dscan_cols_flat[3 * i: 3 * i + 3]
+            for i, s in enumerate(self.plan.scans)
+        }
+        self.dscan_keys = {
+            s.node_id: dscan_keys_flat[i] if self.packed else None
+            for i, s in enumerate(self.plan.scans)
+        }
+        self.alive = {
+            s.node_id: alive_flat[i] for i, s in enumerate(self.plan.scans)
+        }
+        self.dn = dn
         self.vt_arrays = vt_arrays
         self.consts = consts
         self.fops = fops
@@ -1025,26 +1145,47 @@ class Executor:
 
     # -- pipelines -------------------------------------------------------------
 
-    def _pipeline(self, plan: P.Plan, caps: dict[str, int], bpad: int):
-        """The pipeline for one (plan, capacities, batch pad): cached like
-        the JAX package's compiled functions, so the cache counters agree."""
-        key = (plan.sig, tuple(sorted(caps.items())), bpad)
+    def _pipeline(self, plan: P.Plan, caps: dict[str, int], bpad: int,
+                  ov: tuple[int, bool] | None = None):
+        """The pipeline for one (plan, capacities, batch pad, overlay):
+        cached like the JAX package's compiled functions, so the cache
+        counters agree.  ``ov`` switches on the overlay arm: ``(delta row
+        capacity, delta index packable)``."""
+        key = (plan.sig, tuple(sorted(caps.items())), bpad, ov)
         fn = self._pipelines.get(key)
         if fn is not None:
             get_registry().inc("exec.pipeline_cache_hit")
         else:
             get_registry().inc("exec.pipeline_cache_miss")
-            packed = self.store.device_keys("spo") is not None
-            prim_rounds = (
-                {s.node_id: self.store.primary_rounds(s.order) for s in plan.scans}
-                if packed else None
-            )
+            if self.store.n_triples == 0:
+                # overlay over an empty base: dummy single-row base
+                # operands, every base range comes out empty
+                base_packed = True
+                prim_rounds = {s.node_id: 1 for s in plan.scans}
+            else:
+                base_packed = self.store.device_keys("spo") is not None
+                prim_rounds = (
+                    {s.node_id: self.store.primary_rounds(s.order)
+                     for s in plan.scans}
+                    if base_packed else None
+                )
+            # a combined term table that overflows the packed key fields
+            # forces both arms onto the 3-column lexicographic fallback
+            packed = base_packed and (ov is None or ov[1])
+            if not packed:
+                prim_rounds = None
             order_is_tid = (
-                value_table(self.store).order_is_tid if plan.needs_values else False
+                value_table(self.store).order_is_tid
+                if plan.needs_values and ov is None
+                else False  # overlay term ids append out of rendered order
             )
+            delta_cap = ov[0] if ov else 1
             fn = _Lowerer(
                 plan, caps, max(self.store.n_triples, 1), self.store.KEY_BITS,
                 packed, prim_rounds, order_is_tid,
+                overlay=ov is not None,
+                delta_cap=delta_cap,
+                delta_rounds=max(1, int(delta_cap).bit_length()),
             )
             self._pipelines[key] = fn
         return fn
@@ -1056,23 +1197,25 @@ class Executor:
     ) -> BatchResult:
         """Run signature-equal ``queries`` as one micro-batch: encode each
         query's constants, then dispatch through :meth:`execute_encoded`.
-        An active live-store ``view`` is not ported yet (ROADMAP item 16);
-        an inactive one (empty overlay) takes the pure-read path."""
-        if view is not None and view.active:
-            raise NotImplementedError(_OVERLAY_NOT_PORTED)
-        store = self.store
+        ``view`` (a :class:`repro_torch.live.delta.OverlayView` over this
+        executor's store) answers over ``base ⊕ delta``; an inactive view
+        (empty overlay) takes the pure-read fast path untouched."""
+        act = view is not None and view.active
+        enc = view if act else self.store
         bsz = len(queries)
         consts = np.full((bsz, len(plan.scans), 3), -2, np.int32)
         fops = np.zeros((bsz, max(plan.n_filter_ops, 1)), np.int32)
-        vt = value_table(store) if plan.has_filters else None
+        vt = value_table(enc) if plan.has_filters else None
         for i, q in enumerate(queries):
-            consts[i] = P.encode_scan_consts(store, plan, q)
+            consts[i] = P.encode_scan_consts(enc, plan, q)
             if plan.n_filter_ops:
-                fops[i] = P.encode_filter_ops(store, vt, q.filters)
+                fops[i] = P.encode_filter_ops(enc, vt, q.filters)
         limits = np.asarray(
             [-1 if q.limit is None else q.limit for q in queries], np.int32
         )
-        return self.execute_encoded(plan, consts, fops, limits)
+        return self.execute_encoded(
+            plan, consts, fops, limits, view=view if act else None
+        )
 
     def execute_encoded(
         self,
@@ -1080,6 +1223,7 @@ class Executor:
         consts: np.ndarray,
         fops: np.ndarray | None = None,
         limits: np.ndarray | None = None,
+        view=None,
     ) -> BatchResult:
         """The pre-encoded hot path (the benchmark's unit of work): run a
         ``[B, n_scans, 3]`` int32 constants batch (``-1`` variable slot,
@@ -1087,11 +1231,14 @@ class Executor:
         operands, padded to a power-of-two batch, re-dispatching only when
         a capacity was exceeded.  Batches of at most ``fastpath.MAX_BATCH``
         whose plan is a scan-join chain go to the fast path (kernel K4 on
-        the card)."""
+        the card).  ``view`` (an *active* overlay view whose constants and
+        filter operands were encoded against it) adds the second scan arm
+        and always takes the general pipeline; its results decode against
+        the view's combined terms."""
         store = self.store
         out_vars = plan.root.out_vars
         bsz = consts.shape[0]
-        if store.n_triples == 0:
+        if store.n_triples == 0 and view is None:
             if plan.global_agg_alias is not None:
                 # a global COUNT answers one zero row even over nothing
                 lim = (
@@ -1114,7 +1261,7 @@ class Executor:
                 counts=np.zeros(bsz, np.int64),
                 agg_vars=plan.agg_vars,
             )
-        if self.fastpath_enabled and bsz <= FP.MAX_BATCH:
+        if view is None and self.fastpath_enabled and bsz <= FP.MAX_BATCH:
             fp = self._fastpaths.get(plan.sig, _FP_UNSET)
             if fp is _FP_UNSET:
                 fp = FP.build(self, plan)
@@ -1148,21 +1295,53 @@ class Executor:
         qvalid = np.zeros(bpad, bool)
         qvalid[:bsz] = True
         dev = store.device
-        vt = value_table(store) if plan.needs_values else None
+        enc = view if view is not None else store
+        vt = value_table(enc) if plan.needs_values else None
 
         n_scans = len(plan.scans)
         z = torch.zeros(1, dtype=torch.int32, device=dev)
-        scan_cols_flat = tuple(
-            c for s in plan.scans for c in store.device_cols(s.order)
-        )
-        if store.device_keys("spo") is not None:
-            scan_keys_flat = tuple(store.device_keys(s.order) for s in plan.scans)
-            scan_prim_flat = tuple(
-                store.device_primary_starts(s.order) for s in plan.scans
-            )
-        else:
+        if store.n_triples == 0:
+            # empty base under an active overlay: single-row dummies keep
+            # every gather in range; the alive prefix sums (length 1) make
+            # every base range empty, and two zero primary starts make
+            # every seeded search window empty
+            z2 = torch.zeros(2, dtype=torch.int32, device=dev)
+            scan_cols_flat = (z,) * (3 * n_scans)
             scan_keys_flat = ((z, z),) * n_scans
-            scan_prim_flat = (z,) * n_scans
+            scan_prim_flat = (z2,) * n_scans
+        else:
+            scan_cols_flat = tuple(
+                c for s in plan.scans for c in store.device_cols(s.order)
+            )
+            if store.device_keys("spo") is not None:
+                scan_keys_flat = tuple(
+                    store.device_keys(s.order) for s in plan.scans)
+                scan_prim_flat = tuple(
+                    store.device_primary_starts(s.order) for s in plan.scans
+                )
+            else:
+                scan_keys_flat = ((z, z),) * n_scans
+                scan_prim_flat = (z,) * n_scans
+        if view is not None:
+            delta = view.delta
+            ov_packed = delta.device_keys("spo") is not None
+            ov = (delta.n_triples, ov_packed)
+            dscan_cols_flat = tuple(
+                c for s in plan.scans for c in delta.device_cols(s.order)
+            )
+            if ov_packed:
+                dscan_keys_flat = tuple(
+                    delta.device_keys(s.order) for s in plan.scans)
+            else:
+                dscan_keys_flat = ((z, z),) * n_scans
+            alive_flat = tuple(view.alive(s.order) for s in plan.scans)
+            dn = int(view.n_delta)
+        else:
+            ov = None
+            dscan_cols_flat = (z,) * (3 * n_scans)
+            dscan_keys_flat = ((z, z),) * n_scans
+            alive_flat = (z,) * n_scans
+            dn = 0
         if plan.needs_values:
             vt_arrays = (
                 vt.is_lit, vt.is_num, vt.str_rank, vt.num_rank, vt.order_rank
@@ -1185,10 +1364,11 @@ class Executor:
         reg.inc("exec.queries", bsz)
         for round_i in range(_MAX_GROW_ROUNDS):
             t0 = time.perf_counter_ns()
-            fn = self._pipeline(plan, caps, bpad)
+            fn = self._pipeline(plan, caps, bpad, ov)
             out_cols, n, needed = fn.run(
-                scan_cols_flat, scan_keys_flat, scan_prim_flat, vt_arrays,
-                consts_d, fops_d, qvalid_d, qlimit_d,
+                scan_cols_flat, scan_keys_flat, scan_prim_flat,
+                dscan_cols_flat, dscan_keys_flat, alive_flat, dn,
+                vt_arrays, consts_d, fops_d, qvalid_d, qlimit_d,
             )
             self.dispatches += 1
             # every capacity's need, max over the batch, in one copy
@@ -1234,7 +1414,7 @@ class Executor:
             cols[v] = flat[:, at: at + c.shape[1]]
             at += c.shape[1]
         return BatchResult(
-            store=store, vars=out_vars, cols=cols, counts=counts,
+            store=enc, vars=out_vars, cols=cols, counts=counts,
             agg_vars=plan.agg_vars,
         )
 

@@ -495,3 +495,102 @@ def test_serving_on_card_matches_cpu(dev, kind, tmp_path):
             for i in range(batch):
                 assert res["cuda"].ids(i) == res["cpu"].ids(i), (name, batch, i)
     assert K.launches > 0
+
+
+def _live_pair(tmp_path):
+    """The same 5K-row OJM store on the card and on the CPU, each under a
+    live overlay after the same inserts (new terms among them) and deletes
+    (a re-insert and a duplicate among them)."""
+    from repro_torch.live import LiveStore
+
+    tb = generator.make_testbed("OJM", 5000, 0.75, n_poms=2, seed=4)
+    tb.write(str(tmp_path))
+    lives = {}
+    for d in ("cuda", "cpu"):
+        store = create_kg(tb.doc, data_root=str(tmp_path), device=d).to_store(device=d)
+        live = LiveStore(store)
+        trips = [tuple(store.decode_term(int(c[i])) for c in (store.s, store.p, store.o))
+                 for i in range(0, store.n_triples, 7)]
+        p = trips[0][1]
+        live.insert([(f"<http://ex/live{i}>", p, t[2]) for i, t in enumerate(trips[:300])])
+        live.delete(trips[:400] + trips[:20])
+        live.insert(trips[:50])
+        lives[d] = live
+    return lives
+
+
+def test_overlay_rows_on_card_match_cpu(dev, tmp_path):
+    lives = _live_pair(tmp_path)
+    base = lives["cpu"].base
+    p0, classes = serve_bench._classes(base)
+    for name, qtext in classes:
+        for batch in (1, 64, 300):
+            res = {}
+            for d, live in lives.items():
+                ex = get_executor(live.base)
+                plan, batches, _ = serve_bench._encoded_batches(ex, qtext, p0, batch, 1, 0)
+                qs = [parse_select(qtext)] * batch
+                view = live.view()
+                fops = None
+                if plan.n_filter_ops:
+                    from repro_torch.serve import plan as P
+                    from repro_torch.serve.values import value_table
+
+                    fops = np.tile(P.encode_filter_ops(view, value_table(view), qs[0].filters),
+                                   (batch, 1))
+                res[d] = ex.execute_encoded(plan, batches[0], fops, view=view)
+            assert np.array_equal(res["cuda"].counts, res["cpu"].counts), (name, batch)
+            for i in range(batch):
+                assert res["cuda"].rows(i) == res["cpu"].rows(i), (name, batch, i)
+    a, b = (_persist_bytes(lives[d].compact(), tmp_path / f"{d}-c.kgz") for d in ("cuda", "cpu"))
+    assert a == b
+
+
+def _persist_bytes(store, path):
+    persist.save(store, str(path), generation=1)
+    return path.read_bytes()
+
+
+def test_sharded_ingest_in_spawned_workers_on_card_matches_cpu(dev, tmp_path):
+    """``ingest_sharded`` with 2 spawned workers, each opening its own CUDA
+    context: the bytes of the manifest and the shards equal the CPU's."""
+    from repro_torch.shard import ingest_sharded
+
+    tb = generator.make_testbed("SOM", 3000, 0.75, n_poms=2, seed=6)
+    tb.write(str(tmp_path))
+    store = create_kg(tb.doc, data_root=str(tmp_path), device="cpu").to_store(device="cpu")
+    trips = [tuple(store.decode_term(int(c[i])) for c in (store.s, store.p, store.o))
+             for i in range(store.n_triples)]
+    blobs = {}
+    for d in ("cuda", "cpu"):
+        out = tmp_path / d
+        out.mkdir()
+        ingest_sharded(trips, str(out / "kg.shards.json"), 3, workers=2, device=d)
+        blobs[d] = {p.name: p.read_bytes() for p in sorted(out.iterdir())}
+    assert len(blobs["cuda"]) == 4 and blobs["cuda"] == blobs["cpu"]
+
+
+def test_server_on_card_answers_a_client(dev, tmp_path):
+    from repro_torch.api import LocalSession
+    from repro_torch.live import LiveStore
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve.client import connect
+    from repro_torch.serve.server import KGServer
+
+    gpu = _chain_store(dev)
+    cpu = LocalSession(_chain_store("cpu"))
+    srv = KGServer(LiveStore(gpu), port=0, log=False, registry=MetricsRegistry()).start()
+    before = K.launches
+    try:
+        with connect("127.0.0.1", srv.port, timeout=60.0) as c:
+            for text in CHAINS:
+                r = c.query(text)
+                want = cpu.query(text, limit=1000)
+                assert [tuple(x) for x in r["rows"]] == want.rows and r["n_total"] == want.n_total
+            assert K.launches > before  # batch 1 through the server is the kernel
+            r = c.insert([["<http://ex/new>", "<http://ex/p0>", '"card"']])
+            assert r["inserted"] == 1
+            got = c.query("SELECT ?o WHERE { <http://ex/new> <http://ex/p0> ?o }")
+            assert got["rows"] == [['"card"']]
+    finally:
+        srv.stop()

@@ -267,16 +267,44 @@ def test_rdfize_cli_slice_two_flags_byte_identical(testbeds, tmp_path, monkeypat
     assert f"({engine} engine, cpu)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,item", [(["--shards", "2"], 11),
-                                        (["--emit", "kgz", "--shards", "2"], 11),
-                                        (["--shard-workers", "2"], 11)])
-def test_rdfize_later_slice_flags_exit_with_an_error(testbeds, flags, item, capsys):
+@pytest.mark.parametrize("flags", [["--emit", "kgz", "--shards", "2"],
+                                   ["--emit", "kgz", "--shards", "3", "--shard-workers", "2"],
+                                   ["--emit", "kgz", "--shards", "2", "--stream"]])
+def test_rdfize_shard_flags_byte_identical(testbeds, tmp_path, monkeypatch, capsys, flags):
+    """``--shards N`` (serial, or its shard stores built in spawned workers
+    on the CPU) writes the JAX CLI's manifest and shard ``.kgz`` bytes."""
+    *_, d = testbeds[("OJM", 0.25, 2)]
+    common = ["--mapping", str(d / "map.ttl"), "--data-root", str(d), *flags]
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    monkeypatch.setattr(sys, "argv", ["rdfize", *common, "--out",
+                                      str(tmp_path / "jax" / "kg.shards.json")])
+    jax_rdfize.main()
+    capsys.readouterr()
+    result = rdfize.main([*common, "--out", str(tmp_path / "torch" / "kg.shards.json"),
+                          "--device", "cpu"])
+    assert result.n_triples > 0
+    n = int(flags[flags.index("--shards") + 1])
+    names = ["kg.shards.json"] + [f"kg.shard{i}.kgz" for i in range(n)]
+    for name in names:
+        assert (tmp_path / "torch" / name).read_bytes() == (
+            tmp_path / "jax" / name).read_bytes(), name
+    assert f"({n} shards: " in capsys.readouterr().out
+
+
+def test_rdfize_shards_need_kgz_as_in_jax(testbeds, monkeypatch, capsys):
     *_, d = testbeds[("SOM", 0.25, 1)]
-    with pytest.raises(SystemExit) as e:
-        rdfize.main(["--mapping", str(d / "map.ttl"), "--device", "cpu", *flags])
-    err = capsys.readouterr().err
-    assert e.value.code == 2 and f"ROADMAP.md Queue 1 item {item}" in err
-    assert "not ported yet" in err
+    args = ["--mapping", str(d / "map.ttl"), "--shards", "2"]
+    monkeypatch.setattr(sys, "argv", ["rdfize", *args])
+    with pytest.raises(SystemExit) as want:
+        jax_rdfize.main()
+    jerr = capsys.readouterr().err.splitlines()[-1]
+    with pytest.raises(SystemExit) as got:
+        rdfize.main([*args, "--device", "cpu"])
+    err = capsys.readouterr().err.splitlines()[-1]
+    assert got.value.code == want.value.code == 2
+    assert err.split("error: ")[1] == jerr.split("error: ")[1] == (
+        "--shards needs --emit kgz (shard stores are .kgz snapshots)")
 
 
 def test_the_card_is_the_default_device(testbeds, monkeypatch):
@@ -325,7 +353,11 @@ SERVING = ("kg/store.py", "kg/persist.py", "kg/query.py", "kg/bench.py",
            "serve/values.py", "serve/algebra.py", "serve/plan.py", "serve/oracle.py",
            "serve/exec.py", "serve/fastpath.py", "serve/bench.py",
            "kernels/scan_join.py", "api/__init__.py", "api/errors.py",
-           "launch/query.py")
+           "launch/query.py", "live/__init__.py", "live/delta.py",
+           "serve/server.py", "serve/client.py", "launch/serve.py",
+           "shard/__init__.py", "shard/partition.py", "shard/ingest.py",
+           "shard/merge.py", "shard/coordinator.py", "bench/paper_figs.py",
+           "bench/op_model.py", "bench/shard_gather.py")
 
 
 def test_port_imports_nothing_of_jax_or_repro():

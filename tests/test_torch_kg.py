@@ -256,10 +256,28 @@ def test_from_ntriples_term_ids_equal():
     _same_store(js, ts)
 
 
-def test_live_snapshots_are_not_ported(stores, tmp_path):
-    _, ts = stores["SOM"]
-    with pytest.raises(NotImplementedError, match="item 16"):
-        persist.save_delta(None, str(tmp_path / "d.kgz"), str(tmp_path / "p.kgz"))
-    persist.save(ts, str(tmp_path / "p.kgz"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        persist.load_chain(str(tmp_path / "p.kgz"))
+def test_live_snapshots_over_a_testbed_store_match_jax(stores, tmp_path):
+    """A delta snapshot over each package's testbed store: the full and the
+    delta files are the same bytes, and each package resolves both chains
+    to the same live triple set."""
+    js, ts = stores["SOM"]
+    rows = [tuple(ts.decode_term(int(c[i])) for c in (ts.s, ts.p, ts.o))
+            for i in range(0, ts.n_triples, 9)]
+    lives = {}
+    for name, store, pkg in (("jax", js, jpersist), ("torch", ts, persist)):
+        d = tmp_path / name
+        d.mkdir()
+        pkg.save(store, str(d / "p.kgz"))
+        live = (pkg.load_chain(str(d / "p.kgz")) if pkg is jpersist
+                else pkg.load_chain(str(d / "p.kgz"), device="cpu"))
+        live.insert([(f"<http://ex/live{i}>", r[1], r[2]) for i, r in enumerate(rows[:40])])
+        live.delete(rows[:60])
+        pkg.save_delta(live, str(d / "d.kgz"), "p.kgz")
+        lives[name] = live
+    for f in ("p.kgz", "d.kgz"):
+        assert _kgz(tmp_path / "torch" / f) == _kgz(tmp_path / "jax" / f), f
+    want = set(lives["jax"].rendered_triples())
+    assert set(persist.load_chain(str(tmp_path / "jax" / "d.kgz"),
+                                  device="cpu").rendered_triples()) == want
+    assert set(jpersist.load_chain(str(tmp_path / "torch" / "d.kgz")).rendered_triples()) == want
+    assert set(lives["torch"].rendered_triples()) == want

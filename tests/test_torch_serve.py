@@ -225,33 +225,51 @@ def test_cuda_without_a_card_raises(testbed_stores, tmp_path, monkeypatch):
         TripleStore.from_ntriples(_rand_triples(0, 5))
 
 
-def test_later_slice_surfaces_raise(testbed_stores, tmp_path, capsys):
+def test_later_slice_surfaces_work(testbed_stores, tmp_path, capsys):
+    """The surfaces that raised before the live, server and shard modules
+    were ported: a shard manifest through the query CLI and ``connect``, a
+    ``"host:port"`` session, mutations on a ``.kgz`` path and an active
+    overlay view.  Read-only stores still reject mutations."""
+    from repro_torch.live import LiveStore
+    from repro_torch.serve.server import KGServer
+    from repro_torch.shard import ShardSession, shard_store
+
     _, ts, _ = testbed_stores["SOM"]
     path = str(tmp_path / "kg.kgz")
     persist.save(ts, path)
-    manifest = tmp_path / "kg.json"
-    manifest.write_text('{"format": "repro.shard/1", "n_shards": 0, "shards": []}')
-    with pytest.raises(SystemExit) as e:
-        query_cli.main(["--kg", str(manifest), "--device", "cpu", "?s ?p ?o"])
-    assert e.value.code == 2 and "item 11" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.connect(str(manifest), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        api.connect("localhost:7")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        api.connect(path, device="cpu").insert([("<a>", "<b>", "<c>")])
+    manifest = str(tmp_path / "kg.shards.json")
+    shard_store(ts, manifest, 2)
+    text = "SELECT ?s ?o WHERE { ?s ?p ?o } LIMIT 7"
+    want = api.connect(ts).query(text)
+    query_cli.main(["--kg", manifest, "--device", "cpu", text])
+    assert "across 2 shards" in capsys.readouterr().err
+    with api.connect(manifest, device="cpu") as sess:
+        assert isinstance(sess, ShardSession)
+        got = sess.query(text)
+        assert (got.rows, got.n_total) == (want.rows, want.n_total)
+    srv = KGServer(ts, port=0, log=False).start()
+    try:
+        with api.connect(f"127.0.0.1:{srv.port}") as sess:
+            got = sess.query(text)
+            assert (got.rows, got.n_total) == (want.rows, want.n_total)
+            with pytest.raises(ReadOnlyError):
+                sess.insert([("<a>", "<b>", "<c>")])
+    finally:
+        srv.stop()
+    with api.connect(path, device="cpu") as sess:
+        assert sess.insert([("<a>", "<b>", "<c>")])["inserted"] == 1
+        assert sess.query("SELECT ?o WHERE { <a> <b> ?o }").rows == [("<c>",)]
     with pytest.raises(ReadOnlyError):
         api.connect(path, read_only=True, device="cpu").delete([("<a>", "<b>", "<c>")])
     with pytest.raises(ReadOnlyError):
         api.connect(ts).compact()
 
-    class ActiveView:
-        active = True
-
+    live = LiveStore(ts)
+    live.insert([("<a>", "<b>", "<c>")])
     ex = get_executor(ts)
     q = parse_select("SELECT * WHERE { ?s ?p ?o }")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ex.execute(ex.plan(q), [q], view=ActiveView())
+    res = ex.execute(ex.plan(q), [q], view=live.view())
+    assert res.n(0) == ts.n_triples + 1 and ("<a>", "<b>", "<c>") in res.rows(0)
 
 
 def test_warmup_matches_jax(testbed_stores):
