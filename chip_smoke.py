@@ -75,7 +75,24 @@ Phases, each of which makes the script exit non-zero when it fails:
      round-trip p50/p99 at batch 1, a live insert/delete round trip), then
      a ``Coordinator`` over the 4 shards in spawned server processes; K4's
      launch count is set to 0 before and must be above 0 after;
- 13. print the kernels line (one JSON object, all four kernels), the card
+ 13. ``bench.dedup_gather.run`` at its defaults (vocab 1M, dim 64, 262,144
+     ids, duplicate factors 1/4/16/64): the values equal a plain
+     ``index_select``, the distinct count numpy's; Wide & Deep at full
+     width (40 fields x 2^20 x 32) at ``serve_p99`` (512) and ``serve_bulk``
+     (262,144) batches of Zipf(1.3) ids, plain and deduplicated (the same
+     logits, bit for bit; 64 warm forwards each timed), a retrieval over
+     1,000,000 candidates, and the ``serve_p99`` logits against a CPU copy
+     of the weights (rtol 1e-5, atol 1e-6);
+ 14. the distributed PTT/PJTT with 8 shards stacked on the card: 2^22
+     ``mix64`` keys (75% duplicates) in two batches against a numpy
+     first-occurrence oracle, 2^16 keys against a CPU run, and the PJTT
+     over the 1M OJM join against the single-device ``pjtt.probe_sorted``;
+ 15. the runner (``python -m repro_torch.bench.run``) sections ``dedup``,
+     ``live`` and ``shard`` at the JAX package's sizes, the kernels' counts
+     set to 0 before each: the reports' keys equal the committed
+     ``BENCH_live.json`` / ``BENCH_shard.json``'s, routed queries touch one
+     shard at 2 and 4 shards, and K4 runs in the shard section;
+ 16. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
@@ -1559,6 +1576,245 @@ def phase_server(stores, manifest):
     return launches
 
 
+# ------------------------------------------------------------------ slice 7
+
+WD_TIMED = 64  # warm Wide & Deep forwards timed a shape and mode
+DIST_SHARDS = 8  # the JAX test's mesh size
+DIST_KEYS, DIST_KEYS_CPU = 1 << 22, 1 << 16
+DIST_CAPACITY = 1 << 23
+RUNNER_SECTIONS = ("dedup", "live", "shard")
+
+
+def wall_ms(fn) -> tuple:
+    """``fn()``'s result and its wall time in ms, ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_recsys():
+    """``bench.dedup_gather.run`` at its defaults on the card (the values
+    equal a plain ``index_select``, the distinct count numpy's), then Wide
+    & Deep at full width: ``serve_p99`` and ``serve_bulk`` batches of
+    Zipf(1.3) ids, plain and with ``dedup_cap`` 1.5x the distinct ids (the
+    same logits, bit for bit), 64 warm forwards a shape and mode timed; a
+    retrieval over 1,000,000 candidates; the ``serve_p99`` logits and a
+    slice of the retrieval scores against a CPU copy of the weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.bench import dedup_gather as dg_bench
+    from repro_torch.configs import wide_deep
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.models.recsys import WideDeep
+
+    for r in dg_bench.run(device=CARD, log=False):
+        check(r["values_exact"], f"dedup_gather x{r['dup_factor']}: values differ from "
+              "a plain index_select")
+        check(r["n_unique"] == r["n_unique_numpy"], f"dedup_gather x{r['dup_factor']}: "
+              f"n_unique {r['n_unique']} != numpy's {r['n_unique_numpy']}")
+        log(f"dedup_gather vocab 1M dim 64 n={r['n']} dup x{r['dup_factor']}: plain "
+            f"{r['t_plain_s'] * 1e3:.4f} ms, dedup {r['t_dedup_s'] * 1e3:.4f} ms (CUDA "
+            f"events, best of 5); {r['n_unique']} distinct, rows fetched {r['n']} -> "
+            f"{r['rows_fetched_dedup']}; values equal a plain index_select")
+
+    # fp32 products at "highest" precision on both devices (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = wide_deep.config()
+    F, V = cfg.n_sparse, cfg.vocab_per_field
+    t0 = time.perf_counter()
+    model = WideDeep(cfg, device=CARD, seed=0).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"Wide & Deep at full width ({F} fields x {V} vocab x {cfg.embed_dim}, MLP "
+        f"{F * cfg.embed_dim + cfg.n_dense}-{'-'.join(map(str, cfg.mlp))}-1): {n_params} "
+        f"parameters ({n_params * 4 / 1e9:.2f} GB fp32) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    keep = {}
+    with torch.inference_mode():
+        for shape in ("serve_p99", "serve_bulk"):
+            B = RECSYS_SHAPES[shape]
+            zipf = (np.minimum(rng.zipf(1.3, size=(B, F, 1)), V) - 1).astype(np.int32)
+            dense = rng.normal(size=(B, cfg.n_dense)).astype(np.float32)
+            n_unique = len(np.unique(zipf + (np.arange(F, dtype=np.int32) * V)[None, :, None]))
+            cap = int(n_unique * 1.5)
+            sp, de = torch.from_numpy(zipf).to(CARD), torch.from_numpy(dense).to(CARD)
+            modes = {"plain": cfg, "dedup": dataclasses.replace(cfg, dedup_cap=cap)}
+            logits, times = {}, {}
+            for mode, c in modes.items():
+                model.cfg = c
+                logits[mode] = model(sp, de)
+                times[mode] = [wall_ms(lambda: model(sp, de))[1] for _ in range(WD_TIMED)]
+            model.cfg = cfg
+            check(logits["plain"].shape == (B,) and bool(torch.isfinite(logits["plain"]).all()),
+                  f"Wide & Deep {shape}: logits not finite of shape ({B},)")
+            check(torch.equal(logits["plain"], logits["dedup"]),
+                  f"Wide & Deep {shape}: logits with dedup differ from plain (max "
+                  f"{float((logits['plain'] - logits['dedup']).abs().max())})")
+            log(f"Wide & Deep {shape} B={B}: {B * F} lookups a table, {n_unique} distinct "
+                f"(|N|/|S| = {B * F / n_unique:.1f}x), cap {cap}; rows fetched a table "
+                f"plain {B * F}, dedup {cap}; logits equal bit for bit; "
+                + "; ".join(f"{m} forward p50 {pct(t, 50):.3f} ms p99 {pct(t, 99):.3f} ms"
+                            for m, t in times.items())
+                + f" ({WD_TIMED} warm forwards each, wall with synchronize)")
+            keep[shape] = (sp, de, logits["plain"])
+        n_cand = RECSYS_SHAPES["retrieval_cand"]
+        gen = torch.Generator(device=CARD).manual_seed(1)
+        cand = torch.randn((n_cand, cfg.mlp[-1]), generator=gen, device=CARD)
+        sp1, de1 = keep["serve_p99"][0][:1], keep["serve_p99"][1][:1]
+        scores = model.retrieval_scores(sp1, de1, cand)
+        check(scores.shape == (1, n_cand) and bool(torch.isfinite(scores).all()),
+              "retrieval_scores: not finite of shape (1, 1,000,000)")
+        ms = cuda_ms(lambda _: model.retrieval_scores(sp1, de1, cand), reps=10)
+        log(f"Wide & Deep retrieval over {n_cand} candidates x {cfg.mlp[-1]}: {ms:.4f} ms "
+            "(CUDA events, median of 10)")
+    # the CPU copy: the same weights moved off the card
+    sp, de, card_logits = keep["serve_p99"]
+    t0 = time.perf_counter()
+    model.to("cpu")
+    with torch.inference_mode():
+        cpu_logits = model(sp.cpu(), de.cpu())
+        cpu_scores = model.retrieval_scores(sp1.cpu(), de1.cpu(), cand[:4096].cpu())
+    log(f"CPU copy of the weights and its serve_p99 forward: "
+        f"{time.perf_counter() - t0:.2f} s")
+    err = (cpu_logits - card_logits.cpu()).abs()
+    check(torch.allclose(card_logits.cpu(), cpu_logits, rtol=1e-5, atol=1e-6),
+          f"Wide & Deep serve_p99: the card's logits differ from the CPU's (max {float(err.max())})")
+    check(torch.allclose(scores[:, :4096].cpu(), cpu_scores, rtol=1e-5, atol=1e-6),
+          "retrieval_scores: the card's first 4096 scores differ from the CPU's")
+    log(f"Wide & Deep serve_p99 on the card against the CPU copy: max |diff| "
+        f"{float(err.max()):.3g} over {len(cpu_logits)} logits (rtol 1e-5, atol 1e-6); "
+        f"retrieval scores of 4096 candidates within the same tolerance")
+    del model, cand, keep
+    torch.cuda.empty_cache()
+
+
+def phase_distributed(beds):
+    """The distributed PTT/PJTT with 8 shards stacked on the card: 2^22
+    ``mix64`` keys (75% duplicates) in two batches, ``is_new`` against a
+    numpy first-occurrence oracle; at 2^16 keys the card's tables,
+    ``is_new`` and flag equal a CPU run's; the PJTT over the 1M OJM
+    testbed's join, each child row's subjects against the single-device
+    ``pjtt.probe_sorted``'s."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import hashing, pjtt
+
+    S = DIST_SHARDS
+
+    def run(n, device, seed):
+        ids = np.random.default_rng(seed).integers(0, n // 4, n).astype(np.int32)
+        hi, lo = hashing.mix64([torch.from_numpy(ids).to(device)])
+        valid = torch.ones(n, dtype=torch.bool, device=device)
+        table = D.make_sharded_ptt(S, DIST_CAPACITY if n == DIST_KEYS else 4 * n, device=device)
+        outs, ms = [], []
+        for half in (slice(0, n // 2), slice(n // 2, n)):
+            (table, is_new, ovf), t = wall_ms(lambda: D.distributed_insert(
+                S, table, hi[half], lo[half], valid[half]))
+            outs.append((table, is_new, ovf))
+            ms.append(t)
+        return hi, lo, outs, ms
+
+    hi, lo, outs, ms = run(DIST_KEYS, CARD, 0)
+    keys = (hashing.u32(hi).cpu().numpy().astype(np.uint64) << np.uint64(32)) | \
+        hashing.u32(lo).cpu().numpy().astype(np.uint64)
+    first = np.zeros(DIST_KEYS, bool)
+    first[np.unique(keys, return_index=True)[1]] = True
+    got = torch.cat([o[1] for o in outs]).cpu().numpy()
+    check(not any(bool(o[2]) for o in outs), "distributed_insert overflowed at 2^22 keys")
+    check(np.array_equal(got, first), "distributed_insert: is_new differs from numpy's "
+          "first occurrences")
+    log(f"distributed PTT, {S} shards stacked on the card, capacity {DIST_CAPACITY}: "
+        f"{DIST_KEYS} keys ({int(first.sum())} distinct) in two batches: "
+        f"{ms[0]:.2f} ms and {ms[1]:.2f} ms wall (the shards' inserts one after another); "
+        f"is_new equals numpy's first occurrences, no overflow")
+
+    card, cpu = run(DIST_KEYS_CPU, CARD, 1)[2], run(DIST_KEYS_CPU, "cpu", 1)[2]
+    for (tc, nc, oc), (tp, np_, op) in zip(card, cpu):
+        check(torch.equal(tc.hi.cpu(), tp.hi) and torch.equal(tc.lo.cpu(), tp.lo)
+              and torch.equal(nc.cpu(), np_) and bool(oc) == bool(op),
+              "distributed_insert: the card's tables, is_new or flag differ from the CPU's")
+    log(f"distributed PTT at {DIST_KEYS_CPU} keys: tables, is_new and flags equal a CPU run's")
+
+    tb = beds[("OJM", ROWS_PAPER)][0]
+    pk, ps, ck = join_inputs(tb, CARD)
+    K = ojm_shape(tb)[1]
+
+    def pad(x):  # -1 lanes are invalid and are not sent
+        return torch.cat([x, x.new_full((-len(x) % S,), -1)])
+
+    (idx, bovf), t_build = wall_ms(lambda: D.build_distributed_pjtt(S, pad(pk), pad(ps)))
+    (subs, valid, povf), t_probe = wall_ms(
+        lambda: D.distributed_ojm_probe(S, idx, pad(ck), K))
+    subs, valid = subs[: len(ck)], valid[: len(ck)]
+    (one, t_single) = wall_ms(lambda: pjtt.probe_sorted(pjtt.build_sorted(pk, ps), ck, K))
+    big = 2**31 - 1
+
+    def rowsets(s, v):
+        return torch.where(v, s, big).sort(dim=1).values
+
+    check(not bool(bovf) and not bool(povf), "distributed PJTT: a bin or a span overflowed")
+    check(torch.equal(rowsets(subs, valid), rowsets(one.subjects, one.valid)),
+          "distributed PJTT: a child row's subjects differ from pjtt.probe_sorted's")
+    log(f"distributed PJTT, {S} shards, 1M OJM join ({len(pk)} parent rows, {len(ck)} child "
+        f"rows, K={K}): build {t_build:.2f} ms, probe {t_probe:.2f} ms wall; single-device "
+        f"build+probe {t_single:.2f} ms; every row's subjects equal the single-device probe's")
+
+
+def _key_tree(x):
+    return {k: _key_tree(v) for k, v in x.items()} if isinstance(x, dict) else None
+
+
+def phase_runner(kernel_mods):
+    """``python -m repro_torch.bench.run`` sections ``dedup``, ``live`` and
+    ``shard`` at the JAX package's sizes on the card, each into a temporary
+    ``--json-dir``, with the kernels' counts set to 0 just before each and
+    read just after: the reports' keys equal the committed ``BENCH_live.json``
+    and ``BENCH_shard.json``'s, routed queries touch one shard at 2 and 4
+    shards, and the shard section launches K4.  Returns the launches."""
+    import tempfile
+
+    from repro_torch.bench import run as runner
+
+    launches = {name: 0 for name in kernel_mods}
+    with tempfile.TemporaryDirectory(dir=WORK) as out:
+        for section in RUNNER_SECTIONS:
+            reset(kernel_mods)
+            t0 = time.perf_counter()
+            runner.main(["--device", CARD, "--only", section, "--json-dir", out])
+            got = counts(kernel_mods)
+            log(f"runner section {section}: {time.perf_counter() - t0:.1f} s; launches {got}")
+            for name, n in got.items():
+                launches[name] += n
+            if section == "shard":
+                check(got["scan_join"] > 0, "the shard section never launched scan_join")
+        for name in ("BENCH_live.json", "BENCH_shard.json"):
+            with open(os.path.join(out, name)) as f:
+                report = json.load(f)
+            with open(os.path.join(ROOT, name)) as f:
+                committed = json.load(f)
+            check(_key_tree(report) == _key_tree(committed),
+                  f"{name}: the report's keys differ from the committed report's")
+            log(f"{name}: the keys of the committed report")
+        cfg = report["classes"]["routed_single"]["configs"]
+        for n in (2, 4):
+            check(cfg[f"shards{n}"]["fanout_per_query"] == 1.0,
+                  f"routed_single touched {cfg[f'shards{n}']['fanout_per_query']} shards "
+                  f"a query at {n} shards")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1575,7 +1831,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     try:
-        from repro_torch.kernels import bucket_dedup, hash_mix, nested_join
+        from repro_torch.kernels import bucket_dedup, hash_mix, nested_join, scan_join
 
         log("phase 1: device and toolchain")
         smi, rates = phase_device()
@@ -1613,6 +1869,17 @@ def main() -> int:
             launches[name] += n
         log(f"phase 12: the server and the shard coordinator (+{time.perf_counter() - T0:.1f} s)")
         launches["scan_join"] += phase_server(stores, manifest)
+        log(f"phase 13: dedup_gather and Wide & Deep at full width "
+            f"(+{time.perf_counter() - T0:.1f} s)")
+        phase_recsys()
+        log(f"phase 14: the distributed PTT/PJTT, {DIST_SHARDS} shards on the card "
+            f"(+{time.perf_counter() - T0:.1f} s)")
+        phase_distributed(beds)
+        log(f"phase 15: the benchmark runner's dedup, live and shard sections "
+            f"(+{time.perf_counter() - T0:.1f} s)")
+        mods["scan_join"] = scan_join
+        for name, n in phase_runner(mods).items():
+            launches[name] += n
         log(f"phases done (+{time.perf_counter() - T0:.1f} s)")
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()

@@ -6,6 +6,8 @@ port's structure with tensors on ``device``.  uint32 words become int32
 tensors with the same bits; ``u32_numpy`` goes back.  This lets an insert
 that one package began continue in the other; ``store_from_arrays`` holds
 both packages on one triple store without going through a file.
+``state_from_params`` turns a JAX model's params (a nested dict of numpy
+arrays, e.g. Wide & Deep's) into the state dict of the port's module.
 """
 
 from __future__ import annotations
@@ -78,3 +80,20 @@ def store_from_arrays(strings, term_pat, term_val, s, p, o, perms, cols=None,
             raise ValueError(f"index {order}: columns disagree with s, p, o "
                              "gathered by its permutation")
     return store
+
+
+def state_from_params(params, device="cuda") -> dict:
+    """A JAX params pytree (nested dicts of arrays, ``np.asarray``-able)
+    -> a flat state dict keyed ``"mlp.fc0.w"``, as the port's modules name
+    their parameters; load it with ``module.load_state_dict``."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v)
+        else:
+            out[prefix[:-1]] = torch.from_numpy(np.array(node)).to(device)
+
+    walk("", params)
+    return out

@@ -1,0 +1,138 @@
+"""Shared neural-net layers: plain functions over dicts of tensors, and the
+``nn.Module``s that hold those dicts as parameters.
+
+The counterpart of ``repro.models.layers``.  A layer's parameters are a
+dict (``{"w": ..., "b": ...}``) with the JAX package's names and shapes, so
+weights carry across by name (:mod:`repro_torch.convert`).  ``*_init``
+functions draw from an explicit ``torch.Generator`` on the target device;
+JAX's ``jax.random`` streams cannot be reproduced, so parity is checked on
+converted weights.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.float32,
+               bias: bool = False, device="cuda") -> dict:
+    scale = 1.0 / math.sqrt(d_in)
+    w = torch.empty((d_in, d_out), dtype=dtype, device=device).uniform_(-scale, scale,
+                                                                        generator=gen)
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def rmsnorm_init(dim: int, dtype=torch.float32, device="cuda") -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device="cuda") -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p["scale"] + p["bias"]
+
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32,
+                   device="cuda") -> dict:
+    t = torch.empty((vocab, dim), dtype=dtype, device=device).normal_(generator=gen)
+    return {"table": t.mul_(0.02)}
+
+
+def embed(p, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"].index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
+
+
+def mlp_init(gen: torch.Generator, dims: tuple[int, ...], dtype=torch.float32,
+             bias: bool = True, device="cuda") -> dict:
+    """Plain ReLU MLP: dims = (in, h1, ..., out)."""
+    return {f"fc{i}": dense_init(gen, dims[i], dims[i + 1], dtype, bias=bias, device=device)
+            for i in range(len(dims) - 1)}
+
+
+def mlp(p, x: torch.Tensor, act=torch.relu, final_act: bool = False) -> torch.Tensor:
+    n = len(p)
+    for i in range(n):
+        x = dense(p[f"fc{i}"], x)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def glu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
+             device="cuda") -> dict:
+    """Gated linear unit block (SwiGLU/GeGLU share the structure)."""
+    return {
+        "up": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "gate": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "down": dense_init(gen, d_ff, d_model, dtype, device=device),
+    }
+
+
+def glu(p, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+    return dense(p["down"], act(dense(p["gate"], x)) * dense(p["up"], x))
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Token-level mean CE; logits (..., V) fp32-accumulated."""
+    logits = logits.to(torch.float32)
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).to(torch.int64)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+class Dense(nn.Module):
+    """``dense`` with its ``w`` (and ``b``) as parameters."""
+
+    def __init__(self, gen: torch.Generator, d_in: int, d_out: int, dtype=torch.float32,
+                 bias: bool = False, device="cuda"):
+        super().__init__()
+        for k, v in dense_init(gen, d_in, d_out, dtype, bias, device).items():
+            self.register_parameter(k, nn.Parameter(v))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(dict(self.named_parameters()), x)
+
+
+class MLP(nn.Module):
+    """``mlp`` over ``fc0 .. fc{n-1}`` Dense layers (the JAX dict's keys)."""
+
+    def __init__(self, gen: torch.Generator, dims: tuple[int, ...], dtype=torch.float32,
+                 bias: bool = True, device="cuda"):
+        super().__init__()
+        for i in range(len(dims) - 1):
+            self.add_module(f"fc{i}", Dense(gen, dims[i], dims[i + 1], dtype, bias, device))
+
+    def forward(self, x: torch.Tensor, act=torch.relu, final_act: bool = False) -> torch.Tensor:
+        params = {name: dict(m.named_parameters()) for name, m in self.named_children()}
+        return mlp(params, x, act, final_act)
