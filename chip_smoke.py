@@ -92,7 +92,17 @@ Phases, each of which makes the script exit non-zero when it fails:
      set to 0 before each: the reports' keys equal the committed
      ``BENCH_live.json`` / ``BENCH_shard.json``'s, routed queries touch one
      shard at 2 and 4 shards, and K4 runs in the shard section;
- 16. print the kernels line (one JSON object, all four kernels), the card
+ 16. Wide & Deep training through ``configs.cells.recsys_train_step`` at full
+     width (40 fields x 2^20 x 32, batch ``train_batch`` = 65,536, Zipf(1.3)
+     ids), plain and with ``dedup_cap``, from the same seeded weights: step,
+     forward+backward and AdamW ms by CUDA events over 8 steps after 2
+     warm-up, peak memory, every loss finite and falling, plain and dedup
+     within rtol 1e-4 a step, no K1-K4 launch; at a cut size (vocab 2^16,
+     batch 4,096) two steps against a CPU copy, ``grad_accum`` 4 against 1,
+     a ``compress=True`` step and a checkpoint round trip through a failed
+     step (loss within rtol 1e-5, grad_norm 1e-3, params within 5% of each
+     leaf's update in the 2-norm);
+ 17. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
@@ -1815,6 +1825,267 @@ def phase_runner(kernel_mods):
     return launches
 
 
+# ------------------------------------------------------------------ slice 8
+
+TRAIN_WARM, TRAIN_TIMED = 2, 8  # full-width steps a mode: warm-up, timed
+TRAIN_CUT_VOCAB, TRAIN_CUT_BATCH = 1 << 16, 4096  # the cut checks' size
+TRAIN_ACCUM = 4
+# The cut checks' tolerances (measured by ``python -m
+# repro_torch.bench.train_precision``: fp32 against fp64 at this cut size).
+# A step's loss is a forward in fp32 (rtol 1e-5).  Its gradient is not that
+# close between two orders of summation: a pre-activation that rounds to
+# the other side of 0 flips a ReLU for one sample (on the CPU one flip over
+# 7.3M pre-activations moved the embedding gradient by 1e-4 of its norm),
+# so grad_norm gets rtol 1e-3.  AdamW then maps each gradient g to about
+# lr * g / (|g| + eps): where |g| is near eps (1e-8) a tiny difference moves
+# the parameter by up to lr, so params are compared in the 2-norm, leaf by
+# leaf, against the update's own norm (on the CPU after two steps: up to
+# 1.1% for the embedding table).
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_UPDATE_RTOL = 1e-5, 1e-3, 0.05
+DEDUP_RTOL = 1e-4  # loss a step, plain against dedup on the card
+
+
+def phase_training(kernel_mods):
+    """Wide & Deep training through ``configs.cells.recsys_train_step`` (the
+    JAX cell's ``AdamW(lr=1e-3)`` and ``make_train_step``) on the card.  At
+    full width (40 x 2^20 x 32, batch ``train_batch``), plain and with
+    ``dedup_cap`` 1.5x the most distinct ids of a batch, from the same seeded
+    weights on the same Zipf(1.3) batches: 2 warm-up and 8 timed steps each,
+    forward+backward and the AdamW update timed apart by CUDA events, the
+    peak memory, and every loss (finite, falling; plain and dedup within
+    ``DEDUP_RTOL`` a step), the kernels' counts set to 0 just before and read
+    just after.  At a cut size (vocab 2^16 a field, batch 4,096): two steps
+    against a CPU copy of the weights; ``grad_accum`` 4 against 1 on one
+    batch; a ``compress=True`` step; a checkpoint round trip through a
+    ``RetryPolicy`` step that fails once, which must reach an uninterrupted
+    run's params.  Returns the launches of the full-width runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import cells, wide_deep
+    from repro_torch.configs.registry import RECSYS_SHAPES, get_arch
+    from repro_torch.models.recsys import WideDeep
+    from repro_torch.train import checkpoint, fault
+    from repro_torch.train.optimizer import AdamW
+
+    marks = []
+
+    @dataclasses.dataclass(frozen=True)
+    class EventAdamW(AdamW):
+        """The cell's AdamW, with CUDA events recorded around each update."""
+
+        def update(self, grads, state, params):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = super().update(grads, state, params)
+            b.record()
+            marks.append((a, b))
+            return out
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = wide_deep.config()
+    F, V = cfg.n_sparse, cfg.vocab_per_field
+    B = RECSYS_SHAPES[get_arch("wide-deep").train_shape]
+    rng = np.random.default_rng(3)
+    w_true = rng.normal(size=cfg.n_dense).astype(np.float32)
+
+    def batch(b, vocab, device):
+        """Zipf(1.3) ids and the example's labels ``dense @ w_true + 0.3 *
+        noise > 0``, on ``device``."""
+        sp = (np.minimum(rng.zipf(1.3, size=(b, F, 1)), vocab) - 1).astype(np.int32)
+        de = rng.normal(size=(b, cfg.n_dense)).astype(np.float32)
+        y = (de @ w_true + 0.3 * rng.normal(size=b) > 0).astype(np.int32)
+        return tuple(torch.from_numpy(a).to(device) for a in (sp, de, y))
+
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    t0 = time.perf_counter()
+    batches = [batch(B, V, CARD) for _ in range(n_steps)]
+    offs = torch.arange(F, device=CARD, dtype=torch.int32)[None, :, None] * V
+    distinct = [int(torch.unique(b[0] + offs).numel()) for b in batches]
+    cap = int(max(distinct) * 1.5)
+    log(f"training batches: {n_steps} of {B} rows, {B * F} lookups a table each, "
+        f"{min(distinct)}-{max(distinct)} distinct (|N|/|S| = {B * F / max(distinct):.1f}-"
+        f"{B * F / min(distinct):.1f}x); dedup cap {cap}: rows fetched a table and step "
+        f"plain {B * F}, dedup {cap} ({time.perf_counter() - t0:.2f} s to draw)")
+
+    def train(c):
+        """``n_steps`` steps of a fresh seed-0 model under ``c``; -> (losses,
+        grad norms, step ms, forward+backward ms, AdamW ms, peak bytes)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = WideDeep(c, device=CARD, seed=0)
+        step, opt, params = cells.recsys_train_step(c, model, EventAdamW(lr=1e-3))
+        check(dataclasses.asdict(opt) == dataclasses.asdict(AdamW(lr=1e-3)),
+              "the timed optimizer is not the cell's AdamW(lr=1e-3)")
+        state = opt.init(params)
+        marks.clear()
+        spans, metrics = [], []
+        for b in batches:
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            params, state, m = step(params, state, *b)
+            e.record()
+            spans.append((s, e))
+            metrics.append(m)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [s.elapsed_time(e) for s, e in spans]
+        adam_ms = [a.elapsed_time(b) for a, b in marks]
+        fwd_bwd_ms = [s.elapsed_time(a) for (s, _), (a, _) in zip(spans, marks)]
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        n_params = sum(p.numel() for p in params.values())
+        del model, step, params, state, metrics
+        torch.cuda.empty_cache()
+        return losses, norms, step_ms, fwd_bwd_ms, adam_ms, peak, n_params
+
+    reset(kernel_mods)
+    runs = {"plain": train(cfg), "dedup": train(dataclasses.replace(cfg, dedup_cap=cap))}
+    launches = counts(kernel_mods)
+    for mode, (losses, norms, step_ms, fb_ms, adam_ms, peak, n_params) in runs.items():
+        timed_steps = slice(TRAIN_WARM, None)
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"training {mode}: a loss or grad_norm is not finite: {losses} {norms}")
+        check(losses[-1] < losses[0], f"training {mode}: the loss did not fall: {losses}")
+        log(f"Wide & Deep training at full width ({n_params} parameters, batch {B}), {mode}: "
+            f"step p50 {pct(step_ms[timed_steps], 50):.3f} ms p99 "
+            f"{pct(step_ms[timed_steps], 99):.3f} ms; forward+backward p50 "
+            f"{pct(fb_ms[timed_steps], 50):.3f} ms; AdamW update p50 "
+            f"{pct(adam_ms[timed_steps], 50):.3f} ms p99 {pct(adam_ms[timed_steps], 99):.3f} ms "
+            f"(CUDA events, {TRAIN_TIMED} steps after {TRAIN_WARM} warm-up); peak memory "
+            f"{peak / 1e9:.3f} GB (max_memory_allocated); first steps' ms "
+            f"{[round(x, 3) for x in step_ms[:TRAIN_WARM]]}")
+        log(f"  {mode} losses {[round(x, 6) for x in losses]}; grad norms "
+            f"{[round(x, 6) for x in norms]}")
+    lp, ld = np.array(runs["plain"][0]), np.array(runs["dedup"][0])
+    err = float(np.max(np.abs(lp - ld) / np.abs(lp)))
+    check(err <= DEDUP_RTOL, f"training: dedup losses differ from plain by {err:.3g} "
+          f"relative (> {DEDUP_RTOL})")
+    log(f"training: plain and dedup losses agree within {err:.3g} relative a step (rtol "
+        f"{DEDUP_RTOL}; the card's scatter-add sums in a varying order); launches of "
+        f"K1-K4 over both runs {launches}")
+    del batches
+
+    # ---- the cut size: vocab 2^16 a field, batch 4,096
+    cut = dataclasses.replace(cfg, vocab_per_field=TRAIN_CUT_VOCAB)
+    Bc = TRAIN_CUT_BATCH
+    small = [batch(Bc, TRAIN_CUT_VOCAB, "cpu") for _ in range(4)]
+    log(f"cut size for the checks below: vocab {TRAIN_CUT_VOCAB} a field (full: {V}), batch "
+        f"{Bc} (full: {B}); every width else as above")
+
+    def fresh(device=CARD, **kw):
+        model = WideDeep(cut, device=CARD, seed=1).to(device)
+        return cells.recsys_train_step(cut, model, **kw)
+
+    p0 = {k: v.detach().cpu().clone() for k, v in fresh()[2].items()}
+
+    def update_err(pa, pb):
+        """Largest over leaves of |pa - pb| over |pb - p0|, in the 2-norm."""
+        return max(float((pa[k].detach().cpu() - pb[k].detach().cpu()).norm()
+                         / (pb[k].detach().cpu() - p0[k]).norm()) for k in p0)
+
+    t0 = time.perf_counter()
+    res = {}
+    for dev in (CARD, "cpu"):
+        step, opt, params = fresh(dev)
+        state = opt.init(params)
+        ms = []
+        for b in small[:2]:
+            params, state, m = step(params, state, *(x.to(dev) for x in b))
+            ms.append([float(m["loss"]), float(m["grad_norm"])])
+        res[dev] = (np.array(ms), params)
+    (mc, pc), (mh, ph) = res[CARD], res["cpu"]
+    l_err, g_err = (float(np.max(np.abs(mc[:, i] - mh[:, i]) / np.abs(mh[:, i])))
+                    for i in (0, 1))
+    p_err = update_err(pc, ph)
+    check(l_err <= TRAIN_LOSS_RTOL and g_err <= TRAIN_GNORM_RTOL and p_err <= TRAIN_UPDATE_RTOL,
+          f"training: the card's first two steps differ from the CPU's (loss {l_err:.3g}, "
+          f"grad_norm {g_err:.3g} relative; params {p_err:.3g} of the update)")
+    log(f"training at the cut size, two steps on the card against a CPU copy of the "
+        f"weights: loss within {l_err:.3g} (rtol {TRAIN_LOSS_RTOL}), grad_norm within "
+        f"{g_err:.3g} (rtol {TRAIN_GNORM_RTOL}), params within {p_err:.3g} of the update's "
+        f"norm (rtol {TRAIN_UPDATE_RTOL}); largest |diff| of a parameter "
+        f"{max(float((pc[k].detach().cpu() - ph[k].detach()).abs().max()) for k in p0):.3g} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    del res, pc, ph
+
+    sp, de, y = (x.to(CARD) for x in small[0])
+    step1, opt, p1 = fresh()
+    p1, _, m1 = step1(p1, opt.init(p1), sp, de, y)
+    step4, opt, p4 = fresh(grad_accum=TRAIN_ACCUM)
+    micro = [x.reshape(TRAIN_ACCUM, Bc // TRAIN_ACCUM, *x.shape[1:]) for x in (sp, de, y)]
+    p4, _, m4 = step4(p4, opt.init(p4), *micro)
+    a_err = abs(float(m4["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+    ag_err = abs(float(m4["grad_norm"]) - float(m1["grad_norm"])) / float(m1["grad_norm"])
+    ap_err = update_err(p4, p1)
+    check(a_err <= TRAIN_LOSS_RTOL and ag_err <= TRAIN_GNORM_RTOL
+          and ap_err <= TRAIN_UPDATE_RTOL,
+          f"training: grad_accum {TRAIN_ACCUM} differs from 1 (loss {a_err:.3g}, grad_norm "
+          f"{ag_err:.3g} relative, params {ap_err:.3g} of the update)")
+    stepc, opt, pcmp = fresh(compress=True)
+    pcmp, _, mcmp, efb = stepc(pcmp, opt.init(pcmp), sp, de, y)
+    c_err = update_err(pcmp, p1)
+    check(bool(torch.isfinite(mcmp["loss"])) and c_err > 0
+          and all(bool(torch.isfinite(e).all()) for e in efb.values()),
+          "training: the compress=True step gave a non-finite loss or error, or the plain "
+          "step's params")
+    log(f"grad_accum {TRAIN_ACCUM} against 1 on one batch: loss within {a_err:.3g}, grad_norm "
+        f"within {ag_err:.3g}, params within {ap_err:.3g} of the update; a compress=True step "
+        f"ran (loss {float(mcmp['loss']):.6f}; its params {c_err:.3g} of the update's norm "
+        f"from the plain step's: gradients under 1/254 of a leaf's largest round to 0)")
+    del p1, p4, pcmp, efb
+
+    # a checkpoint round trip: save after 2 steps, a step that fails once after
+    # its update has written the params, restore, retry, one more step
+    t0 = time.perf_counter()
+    cuts = [tuple(x.to(CARD) for x in b) for b in small]
+    step, opt, ref = fresh()
+    state = opt.init(ref)
+    for b in cuts:
+        ref, state, _ = step(ref, state, *b)
+    step, opt, params = fresh()
+    live = {"state": opt.init(params), "failed": 0}
+    root = os.path.join(WORK, "checkpoints")
+    for b in cuts[:2]:
+        params, live["state"], _ = step(params, live["state"], *b)
+    checkpoint.save(os.path.join(root, "step_2"), (params, live["state"]), step=2)
+
+    def flaky():
+        out = step(params, live["state"], *cuts[2])
+        if not live["failed"]:
+            live["failed"] += 1
+            raise RuntimeError("simulated failure after the update")
+        return out
+
+    def on_failure(attempt, exc):
+        (rp, rs), n = checkpoint.restore(checkpoint.latest_step_dir(root),
+                                         (params, live["state"]), device=CARD)
+        check(n == 2, f"restored step {n}, not 2")
+        with torch.no_grad():
+            for k, v in rp.items():
+                params[k].copy_(v)
+        live["state"] = rs
+
+    _, live["state"], _ = fault.RetryPolicy(max_retries=2, backoff_s=0.0).run(
+        flaky, on_failure=on_failure)
+    params, live["state"], _ = step(params, live["state"], *cuts[3])
+    r_err = update_err(params, ref)
+    check(live["failed"] == 1 and int(live["state"].step) == 4 and r_err <= TRAIN_UPDATE_RTOL,
+          f"training: the restored run's params differ from the uninterrupted run's by "
+          f"{r_err:.3g} of the update (step {int(live['state'].step)})")
+    log(f"checkpoint round trip (save at step 2, a failed step 3, restore, retry, step 4): "
+        f"params within {r_err:.3g} of the update's norm of an uninterrupted run (rtol "
+        f"{TRAIN_UPDATE_RTOL}; the card's scatter-add sums in a varying order) "
+        f"({time.perf_counter() - t0:.2f} s)")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1879,6 +2150,10 @@ def main() -> int:
             f"(+{time.perf_counter() - T0:.1f} s)")
         mods["scan_join"] = scan_join
         for name, n in phase_runner(mods).items():
+            launches[name] += n
+        log(f"phase 16: Wide & Deep training at full width "
+            f"(+{time.perf_counter() - T0:.1f} s)")
+        for name, n in phase_training(mods).items():
             launches[name] += n
         log(f"phases done (+{time.perf_counter() - T0:.1f} s)")
     except Exception as e:  # every phase's failure ends the run here

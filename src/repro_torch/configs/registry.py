@@ -4,7 +4,8 @@ The counterpart of ``repro.configs.registry``, holding only the recsys
 entry for now (the LM and GNN families are not ported yet).  The shapes
 are the JAX package's: ``serve_p99`` and ``serve_bulk`` are forward
 batches, ``retrieval_cand`` the candidates one query is scored against,
-``train_batch`` a training batch (training is not ported yet).
+``train_batch`` the batch of a training step (an entry's ``train_shape``;
+the step is ``configs.cells.recsys_train_step``).
 """
 
 from __future__ import annotations
@@ -30,12 +31,13 @@ class ArchEntry:
     smoke_config: Callable
     shapes: tuple[str, ...]
     skips: dict[str, str]
+    train_shape: str | None = None   # the shape a training step runs at
 
 
 ARCHS: dict[str, ArchEntry] = {
     "wide-deep": ArchEntry(
         "wide-deep", "recsys", wide_deep.config, wide_deep.smoke_config,
-        tuple(RECSYS_SHAPES), {},
+        tuple(RECSYS_SHAPES), {}, train_shape="train_batch",
     ),
 }
 

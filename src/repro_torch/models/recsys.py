@@ -1,4 +1,5 @@
-"""Wide & Deep (Cheng et al., arXiv:1606.07792), serving on one device.
+"""Wide & Deep (Cheng et al., arXiv:1606.07792), serving and training on one
+device.
 
 The counterpart of ``repro.models.recsys``: 40 sparse fields, embed_dim 32,
 deep MLP 1024-512-256, concat interaction.  The embedding lookup is the hot
@@ -8,6 +9,10 @@ path.  As in JAX it is a row fetch followed by a sum over the bag axis (not
 
 Only the single-device fetch is here (JAX's ``_fetch_rows`` with no mesh);
 the vocab-parallel fetch and the parameter specs need a mesh and wait.
+Gradients flow through the fetch, plain or deduplicated: the backward of
+each ``index_select`` is the mirrored scatter-add into a dense table
+gradient, as JAX's autodiff gives it.  On the card that scatter-add uses
+atomics, so its fp32 sums land in a varying order.
 fp32 products are meant to run at "highest" precision (no TF32, PyTorch's
 default): with TF32 the card's logits drift from the CPU's by more than
 the tolerance the checks state.
@@ -36,6 +41,14 @@ class WideDeepConfig:
     bag_size: int = 1
     dedup_cap: int | None = None  # PTT-style unique-gather cap (None = off)
     dtype: torch.dtype = torch.float32
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of logits against 0/1 labels (JAX's
+    ``loss_fn`` on the logits), in fp32."""
+    logits = logits.to(torch.float32)
+    y = labels.to(torch.float32)
+    return torch.mean(logits.clamp(min=0) - logits * y + torch.log1p(torch.exp(-logits.abs())))
 
 
 class WideDeep(nn.Module):
@@ -85,10 +98,7 @@ class WideDeep(nn.Module):
 
     def loss(self, sparse_ids, dense_feats, labels) -> torch.Tensor:
         """Binary cross-entropy (CTR objective)."""
-        logits = self(sparse_ids, dense_feats).to(torch.float32)
-        y = labels.to(torch.float32)
-        return torch.mean(logits.clamp(min=0) - logits * y
-                          + torch.log1p(torch.exp(-logits.abs())))
+        return bce_loss(self(sparse_ids, dense_feats), labels)
 
     def retrieval_scores(self, sparse_ids, dense_feats, candidates) -> torch.Tensor:
         """Score queries against a candidate matrix (n_cand, mlp[-1]) — one

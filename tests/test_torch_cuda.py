@@ -594,3 +594,50 @@ def test_server_on_card_answers_a_client(dev, tmp_path):
             assert got["rows"] == [['"card"']]
     finally:
         srv.stop()
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_train_step_on_card_matches_cpu(dev, dedup):
+    """Two Wide & Deep steps (``configs.cells.recsys_train_step``, AdamW lr
+    1e-2) on the card against a CPU copy of the same weights, with
+    ``chip_smoke.py`` phase 16's tolerances: loss within rtol 1e-5,
+    grad_norm within 1e-3 (a pre-activation rounding to the other side of 0
+    flips a ReLU for one sample), each leaf's params within 5% of its
+    update's 2-norm (AdamW maps a gradient near eps to a step of up to lr,
+    however it rounded)."""
+    import dataclasses
+
+    from repro_torch.configs import cells, wide_deep
+    from repro_torch.models.recsys import WideDeep
+    from repro_torch.train.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = wide_deep.smoke_config()
+    rng = np.random.default_rng(5)
+    sp = (np.minimum(rng.zipf(1.3, size=(2, 64, cfg.n_sparse, 1)), cfg.vocab_per_field)
+          - 1).astype(np.int32)
+    de = rng.normal(size=(2, 64, cfg.n_dense)).astype(np.float32)
+    y = (rng.random((2, 64)) > 0.5).astype(np.int32)
+    if dedup:
+        offs = (np.arange(cfg.n_sparse) * cfg.vocab_per_field)[None, :, None]
+        cfg = dataclasses.replace(cfg, dedup_cap=int(1.5 * max(
+            len(np.unique(b + offs)) for b in sp)))
+    p0 = {k: v.detach().clone()
+          for k, v in WideDeep(cfg, device="cpu", seed=1).named_parameters()}
+    runs = {}
+    for device in ("cpu", dev):
+        model = WideDeep(cfg, device="cpu", seed=1).to(device)
+        step, opt, params = cells.recsys_train_step(cfg, model, AdamW(lr=1e-2))
+        state = opt.init(params)
+        ms = []
+        for i in range(2):
+            batch = (torch.from_numpy(a[i]).to(device) for a in (sp, de, y))
+            params, state, m = step(params, state, *batch)
+            ms.append([float(m["loss"]), float(m["grad_norm"])])
+        runs[device.type if isinstance(device, torch.device) else device] = (
+            np.array(ms), {k: v.detach().cpu() for k, v in params.items()})
+    (mc, pc), (mh, ph) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(mc[:, 0], mh[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(mc[:, 1], mh[:, 1], rtol=1e-3)
+    for k, v in p0.items():
+        assert float((pc[k] - ph[k]).norm()) <= 0.05 * float((ph[k] - v).norm()), k
