@@ -29,9 +29,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      with the kernels' launch counters set to 0 just before it and read just
      after: the optimized engine (sorted PJTT) on every testbed and the
      naive engine on the 1M OJM (the paper's "did not finish" cell); at
-     100K the naive engine (SOM; OJM at 20K), the hash PJTT (OJM) and the
-     streamed engine (SOM, OJM).  The 100K runs, and the naive OJM at 20K,
-     are repeated on the CPU and their N-Triples must be byte-identical to
+     100K the naive engine (SOM; OJM at 20K), the hash PJTT (OJM at 20K)
+     and the streamed engine (SOM, OJM).  The 100K runs, and the naive and
+     hash OJM at 20K, are repeated on the CPU and their N-Triples must be byte-identical to
      the card's; every 1M output must hold no duplicate line, exactly the
      distinct triples a numpy count of the CSV gives, and the same sorted
      lines as the optimized eager run; a profiled rerun of the optimized
@@ -49,8 +49,8 @@ Phases, each of which makes the script exit non-zero when it fails:
      print its chain of dependent loads (the k-ary searches' and a
      bisection's);
   8. serve the six ``serve/bench.py`` query classes at batch 1, 8, 64 and
-     4096: the card's rows must equal the CPU's over the 100K and the 1M
-     stores, and over the 100K stores a query a class must equal
+     4096: the card's rows must equal the CPU's over the 100K stores (and
+     the 1M stores at batch 1 and 64), and over the 100K stores a query a class must equal
      ``oracle_select``'s; then ``serve.bench.bench_serve`` over the 1M
      stores on the card (K4's launch count set to 0 just before, and above
      0 just after, or the phase fails) prints queries/s and p50/p99
@@ -66,11 +66,12 @@ Phases, each of which makes the script exit non-zero when it fails:
      from-scratch build of the mutated set; a ``save_delta`` /
      ``load_chain`` round trip; compaction byte-identical to that build;
      at 100K the same sequence on the CPU gives the card's rows and bytes;
- 11. ``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted) and
-     with 2 spawned workers (the same bytes); at 100K the card's bytes equal
-     the CPU's; the shards' union is the unsharded store, each triple on
-     its subject's shard; ``launch.query`` and the shard session answer
-     the six classes at batch 1 and 64 as the unsharded store does;
+ 11. ``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted);
+     at 100K, serial and with 2 spawned workers (the same bytes), and the
+     card's bytes equal the CPU's; the shards' union is the unsharded
+     store, each triple on its subject's shard; ``launch.query`` and the
+     shard session answer the six classes at batch 1 and 64 as the
+     unsharded store does;
  12. a ``KGServer`` over the 1M OJM store with a client (the six classes,
      round-trip p50/p99 at batch 1, a live insert/delete round trip), then
      a ``Coordinator`` over the 4 shards in spawned server processes; K4's
@@ -102,7 +103,20 @@ Phases, each of which makes the script exit non-zero when it fails:
      a ``compress=True`` step and a checkpoint round trip through a failed
      step (loss within rtol 1e-5, grad_norm 1e-3, params within 5% of each
      leaf's update in the 2-norm);
- 17. print the kernels line (one JSON object, all four kernels), the card
+ 17. the LM family at its published widths in bf16 (``phase_lm``):
+     qwen2.5-3b at full depth serves 4 requests (prompt 512, 64 tokens)
+     through ``examples/serve_lm.py`` (the cache filled by ``decode_step``
+     held to the prefill's logits), ``prefill_32k`` at batch 1 and
+     ``decode_32k`` at batch 32 over a seeded 32,768-slot cache;
+     mixtral-8x7b at 8 of its 32 layers ``decode_32k`` at batch 128,
+     ``long_500k`` at batch 1 (a 4,096-slot ring) and ``prefill_32k`` at
+     batch 1; each against its bound (bytes at 3.35 TB/s, operations at
+     989 TFLOP/s), the stages of a decode step and a prefill (CUDA events
+     around attention, cache write and MoE; kernels by ``torch.profiler``),
+     and in fp32 at full width (qwen 2 layers, mixtral 1) the card against
+     the CPU (logits within 1e-4 of their largest, routing equal); no
+     K1-K4 launch;
+ 18. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
@@ -767,12 +781,13 @@ def phase_rdfize(beds, kernel_mods):
     # the naive OJM at the paper's tier (its "did not finish" cell) against
     # the optimized eager run's sorted lines; then the paths of slice 2 on
     # the small tier, cuda against cpu (the 1M hash-PJTT, streamed and naive
-    # SOM reruns were cut to keep the run inside its time: PERF.md)
+    # SOM reruns, and the hash PJTT's at 100K, were cut to keep the run
+    # inside its time: PERF.md)
     result, out = run_on_card("OJM", ROWS_PAPER, "naive")
     check_paper_tier(beds, "OJM", "naive", result, out, digests)
     os.remove(out)
     for path, kind, n_rows in (("naive", "SOM", ROWS_SMALL), ("naive", "OJM", ROWS_NAIVE_CPU),
-                               ("hash", "OJM", ROWS_SMALL), ("stream", "SOM", ROWS_SMALL),
+                               ("hash", "OJM", ROWS_NAIVE_CPU), ("stream", "SOM", ROWS_SMALL),
                                ("stream", "OJM", ROWS_SMALL)):
         _, out = run_on_card(kind, n_rows, path)
         same_bytes_as_cpu(kind, n_rows, path, out)
@@ -1050,14 +1065,17 @@ def phase_serve(stores):
     from repro_torch.serve import bench, oracle_select, parse_select
     from repro_torch.serve.exec import get_executor
 
-    # rows: the card against the CPU at both tiers, a sample against the oracle
+    # rows: the card against the CPU at both tiers (at 1M at batch 1 and 64
+    # only, to keep the run inside its time: PERF.md), a sample against the
+    # oracle
     for n_rows in (ROWS_SMALL, ROWS_PAPER):
+        batches_checked = SERVE_BATCHES if n_rows == ROWS_SMALL else (1, 64)
         for kind in ("SOM", "OJM"):
             gpu, cpu = (stores[(kind, n_rows, d)] for d in ("cuda", "cpu"))
             p0, classes = bench._classes(gpu)
             check((p0, classes) == bench._classes(cpu), "classes differ across devices")
             for name, qtext in classes:
-                for batch in SERVE_BATCHES:
+                for batch in batches_checked:
                     res = {}
                     for d, st in (("cuda", gpu), ("cpu", cpu)):
                         ex = get_executor(st)
@@ -1070,7 +1088,7 @@ def phase_serve(stores):
                     got = get_executor(gpu).solve(q).rows(0)
                     check(got == oracle_select(cpu, q),
                           f"{kind} 100K {name}: rows differ from oracle_select")
-            log(f"{kind} {n_rows}: rows of every class at batch {SERVE_BATCHES} equal on the "
+            log(f"{kind} {n_rows}: rows of every class at batch {batches_checked} equal on the "
                 f"card and the CPU" + (", and oracle_select's for one query a class"
                                        if n_rows == ROWS_SMALL else ""))
 
@@ -1137,10 +1155,10 @@ FIG_SIZES = (10_000, 100_000)  # paper_figs here; the 1M tier: bench.paper_figs 
 FIG_POMS = (1, 2)
 LIVE_BATCHES = (1, 64, 4096)
 LIVE_B1_TEXTS = 32  # distinct batch-1 overlay queries a class, each checked
-LIVE_TIMED = {1: 128, 64: 8, 4096: 4}  # warm overlay dispatches timed a class
+LIVE_TIMED = {1: 64, 64: 8, 4096: 4}  # warm overlay dispatches timed a class
 N_MUT = 10_000  # the live phase's inserts, and its deletes
 N_SHARDS = 4
-SERVER_TIMED_PASSES = 3  # timed round trips a class: 3 passes over 64 texts
+SERVER_TIMED_PASSES = 2  # timed round trips a class: 2 passes over 64 texts
 
 
 def reset(kernel_mods) -> None:
@@ -1397,9 +1415,9 @@ def phase_live(stores, paths):
 
 
 def phase_shards(beds, kernel_mods, stores, paths):
-    """``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted)
-    and with 2 spawned workers (same bytes); at 100K the card's shard
-    bytes equal the CPU's; the shards' union is the unsharded store's
+    """``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted);
+    at 100K serial and with 2 spawned workers (same bytes), and the card's
+    shard bytes equal the CPU's; the shards' union is the unsharded store's
     triples, each on its subject's shard; ``launch.query`` and the shard
     session answer the six classes as the unsharded store does.  Returns
     the serial run's launches and the 1M manifest's path."""
@@ -1440,13 +1458,14 @@ def phase_shards(beds, kernel_mods, stores, paths):
     log(f"  launches during the serial sharded ingest: {got}")
     for name in ("hash_mix", "bucket_dedup"):
         check(got[name] > 0, f"{name} was never launched by the sharded ingest")
-    _, spawned = build(ROWS_PAPER, CARD, 2)
-    check(spawned == serial, "sharded ingest: 2 spawned workers wrote other bytes than serial")
-    log("1M: the manifest and the shard bytes of 2 spawned workers equal the serial run's")
+    # the spawned workers at 100K (at 1M until the run needed the time: PERF.md)
     _, small_card = build(ROWS_SMALL, CARD, 0)
+    _, spawned = build(ROWS_SMALL, CARD, 2)
+    check(spawned == small_card, "sharded ingest: 2 spawned workers wrote other bytes than serial")
     _, small_cpu = build(ROWS_SMALL, "cpu", 0)
     check(small_card == small_cpu, "sharded ingest 100K: the card's bytes differ from the CPU's")
-    log("100K: the card's manifest and shard bytes equal the CPU's")
+    log("100K: the manifest and shard bytes of 2 spawned workers equal the serial run's, "
+        "and the card's equal the CPU's")
 
     unsharded = stores[("OJM", ROWS_PAPER, "cuda")]
     want = set(LiveStore(unsharded).rendered_triples())
@@ -2086,6 +2105,501 @@ def phase_training(kernel_mods):
     return launches
 
 
+
+# ------------------------------------------------------------------ slice 9
+
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 peak (NVIDIA's data sheet)
+LM_WARM, LM_TIMED = 2, 16  # decode steps a cell: warm-up, timed
+LM_SERVE = dict(batch=4, prompt=512, gen=64)  # qwen's requests through serve_lm
+QWEN_DECODE_BATCH = 32  # decode_32k's batch, cut from 128: params + cache 45.4 GB
+MIXTRAL_LAYERS = 8  # cut from 32: 32 layers in bf16 are 93 GB, 8 are 23.7 GB
+PREFILL_BATCH, PREFILL_WARM_SEQ = 1, 4096  # prefill_32k's batch, cut from 32
+LM_PARITY_LAYERS = {"qwen2.5-3b": 2, "mixtral-8x7b": 1}  # the fp32 CPU checks' depth
+LM_PARITY_SEQ, LM_PARITY_CHUNK, LM_PARITY_BATCH, LM_PARITY_STEPS = 256, 64, 2, 8
+LM_PARITY_TOL = 1e-4  # ||card - cpu||_inf / ||cpu||_inf, fp32 without TF32
+
+
+def lm_costs(cfg, q_tokens: int, pairs: int, logits_rows: int, experts: int | None = None):
+    """(weight bytes, operations) one LM call needs: every weight read once
+    (an MoE layer's ``experts`` of its experts, all by default; the
+    embedding only its ``q_tokens`` rows), and 2 operations a multiply-add:
+    the layers' matmuls for ``q_tokens`` tokens (top_k experts each), the
+    attention's two products over ``pairs`` (query, key) pairs, and the
+    logits of ``logits_rows`` rows."""
+    import torch
+
+    it = torch.finfo(cfg.dtype).bits // 8
+    d, D, H, K, f, L = (cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv, cfg.d_ff,
+                        cfg.n_layers)
+    attn = d * (H + 2 * K) * D + H * D * d + (H + 2 * K) * D * cfg.qkv_bias
+    if cfg.moe:
+        ffn_w, ffn_tok, router = 3 * d * f * (experts or cfg.n_experts), 3 * d * f * cfg.top_k, \
+            d * cfg.n_experts
+    else:
+        ffn_w = ffn_tok = 3 * d * f
+        router = 0
+    head = cfg.vocab * d
+    weight_bytes = (it * (L * (attn + ffn_w + 2 * d) + d + head + q_tokens * d)
+                    + 4 * L * router)
+    ops = (2 * q_tokens * L * (attn + ffn_tok + router) + 4 * L * H * D * pairs
+           + 2 * logits_rows * head)
+    return weight_bytes, ops
+
+
+def bound_ms(nbytes: int, ops: int) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def causal_pairs(batch: int, seq: int, window) -> int:
+    """(query, key) pairs a causal prefill attends: min(i + 1, window) a query."""
+    w = min(window or seq, seq)
+    return batch * (w * (w + 1) // 2 + (seq - w) * w)
+
+
+class Sections:
+    """CUDA events around the LM's attention, cache write, MoE routing and
+    MoE dispatch+experts functions while it is entered (each module
+    attribute wrapped, restored on exit): the stream time of each section
+    over the calls, in ms, after a synchronize."""
+
+    def __init__(self):
+        from repro_torch.models import attention, moe
+
+        self.targets = [(attention, "_sdpa", "attention"),
+                        (attention, "_chunked_sdpa", "attention"),
+                        (attention, "write_cache", "cache write"),
+                        (moe, "_route", "MoE routing"),
+                        (moe, "_dispatch_compute_combine", "MoE dispatch+experts")]
+        self.marks = []
+
+    def __enter__(self):
+        import torch
+
+        self.saved = []
+        for mod, name, label in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+                out = _fn(*a, **k)
+                e.record()
+                self.marks.append((_label, s, e))
+                return out
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for label, s, e in self.marks:
+            out[label] = out.get(label, 0.0) + s.elapsed_time(e)
+        return out
+
+
+KERNEL_KINDS = (("gemm", ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")),
+                ("softmax", ("softmax",)), ("copy", ("copy",)),
+                ("index/scatter/gather", ("index", "scatter", "gather")),
+                ("sort/search", ("sort", "radix", "search", "cub::")),
+                ("reduce", ("reduce",)))
+
+
+def lm_profile(label: str, fn) -> None:
+    """Log ``fn()``'s stages twice: its sections' stream time by CUDA events
+    (``Sections``), and its kernels' device time by kind of kernel name
+    from ``torch.profiler`` (the rest elementwise)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with Sections() as sec:
+        s.record()
+        fn()
+        e.record()
+    parts = sec.ms()  # synchronizes
+    total = s.elapsed_time(e)
+    rest = total - sum(parts.values())
+    log(f"  {label} by section (CUDA events, one call, {total:.3f} ms): "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
+        + f", the rest (embedding, norms, rope, projections, FFN, logits) {rest:.3f} ms "
+        f"({100 * rest / total:.1f}%)")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [(ev.name, ev.time_range.elapsed_us() / 1e3) for ev in prof.events()
+                   if str(ev.device_type).endswith("CUDA")]
+    except Exception as exc:  # a measurement the card could not give
+        log(f"  {label}: torch.profiler failed ({type(exc).__name__}: {exc}); kernels not "
+            "measured")
+        return
+    if not kernels:
+        log(f"  {label}: torch.profiler recorded no kernel; kernels not measured")
+        return
+    kinds, top = {}, {}
+    for name, ms in kernels:
+        low = name.lower()
+        kind = next((k for k, keys in KERNEL_KINDS if any(x in low for x in keys)),
+                    "elementwise/other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        top[name] = top.get(name, 0.0) + ms
+    busy = sum(kinds.values())
+    log(f"  {label} by kernel kind (torch.profiler, {len(kernels)} kernels, {busy:.3f} ms "
+        "busy): " + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
+                              for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:9.3f} ms  {name[:150]}")
+
+
+def fill_cache(cache, first_pos: int, gen) -> None:
+    """Seeded k and v; slot j holds position ``first_pos + j`` (the slot
+    order ``pos % T`` of a ring, as ``first_pos`` is a multiple of T)."""
+    import torch
+
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    t = cache.pos.shape[-1]
+    cache.pos.copy_(torch.arange(first_pos, first_pos + t, dtype=torch.int32,
+                                 device=cache.pos.device).expand_as(cache.pos))
+
+
+def time_prefill(cfg, params, seq: int, rng) -> dict:
+    """One warm-up prefill at ``PREFILL_WARM_SEQ``, then one timed at
+    ``seq`` (CUDA events), batch ``PREFILL_BATCH``: ms, peak GB, its bound."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    dev = torch.device(CARD)
+    with torch.inference_mode():
+        warm = torch.from_numpy(rng.integers(0, cfg.vocab, size=(PREFILL_BATCH,
+                                                                 PREFILL_WARM_SEQ))).to(dev)
+        transformer.prefill(cfg, params, warm)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(PREFILL_BATCH, seq))).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        logits = transformer.prefill(cfg, params, toks)
+        e.record()
+        torch.cuda.synchronize()
+    check(tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill at {seq}: logits not finite of shape (1, 1, {cfg.vocab})")
+    nbytes, ops = lm_costs(cfg, PREFILL_BATCH * seq, causal_pairs(PREFILL_BATCH, seq, cfg.window),
+                           PREFILL_BATCH)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    return dict(ms=s.elapsed_time(e), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                bound_ms=b_ms, bound_by=b_by, ops=ops)
+
+
+def time_decode(cfg, params, cache, batch: int, position: int, rng) -> dict:
+    """``LM_WARM`` + ``LM_TIMED`` decode steps at ``position`` (each rewrites
+    that slot), CUDA events a step; p50/p99 of the timed, peak GB, bound."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    dev = torch.device(CARD)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(batch, 1))).to(dev)
+    pos = torch.tensor(position, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    with torch.inference_mode():
+        for _ in range(LM_WARM + LM_TIMED):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            logits, _ = transformer.decode_step(cfg, params, cache, tok, pos)
+            e.record()
+            marks.append((s, e))
+        torch.cuda.synchronize()
+    check(tuple(logits.shape) == (batch, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} decode at {position}: logits not finite of shape ({batch}, 1, "
+          f"{cfg.vocab})")
+    ms = [s.elapsed_time(e) for s, e in marks[LM_WARM:]]
+    T = cache.k.shape[2]
+    visible = min(T, cfg.window or T, position + 1)
+    nbytes, ops = lm_costs(cfg, batch, batch * visible, batch)
+    it = cache.k.element_size()
+    cache_bytes = (2 * cache.k.numel() * it + cache.pos.numel() * 4
+                   + 2 * cfg.n_layers * batch * cfg.n_kv * cfg.head_dim * it)
+    b_ms, b_by = bound_ms(nbytes + cache_bytes, ops)
+    return dict(p50=pct(ms, 50), p99=pct(ms, 99), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                bound_ms=b_ms, bound_by=b_by, weight_gb=nbytes / 1e9, cache_gb=cache_bytes / 1e9)
+
+
+def lm_parity(arch: str, layers: int) -> dict:
+    """``arch`` at its published widths and ``layers`` layers in fp32, the
+    same seeded weights on the card and on the CPU: a prefill of 1 x 256 on
+    the chunked path (``attn_chunk`` 64), then 8 decode steps at batch 2
+    from an empty cache; every logits tensor within ``LM_PARITY_TOL`` of its
+    largest magnitude, and an MoE's routing equal call by call (a token
+    routed apart fails the check with its index and the CPU's margin
+    between the k-th and the next probability)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import moe, transformer
+
+    cfg = dataclasses.replace(registry.get_arch(arch).config(), n_layers=layers,
+                              dtype=torch.float32, attn_chunk=LM_PARITY_CHUNK)
+    model = transformer.Transformer(cfg, device=CARD, seed=1)
+    on = {CARD: model.params(),
+          "cpu": transformer.nest({k: v.detach().cpu() for k, v in model.named_parameters()})}
+    rng = np.random.default_rng(4)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, LM_PARITY_SEQ)))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab, size=(LM_PARITY_BATCH, LM_PARITY_STEPS)))
+    route = moe._route
+    out = {}
+    for dev, params in on.items():
+        routes, logits = [], []
+
+        def recording(p, c, xt, _routes=routes):
+            vals, idx, aux = route(p, c, xt)
+            probs = torch.softmax(xt.to(torch.float32) @ p["router"]["w"], dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True, stable=True).values
+            _routes.append((idx.cpu(), (top[:, c.top_k - 1] - top[:, c.top_k]).cpu()))
+            return vals, idx, aux
+
+        moe._route = recording
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                logits.append(transformer.prefill(cfg, params, prompt.to(dev)).cpu())
+                cache = transformer.make_cache(cfg, LM_PARITY_BATCH, LM_PARITY_STEPS, dev)
+                for i in range(LM_PARITY_STEPS):
+                    lg, cache = transformer.decode_step(
+                        cfg, params, cache, steps[:, i:i + 1].to(dev),
+                        torch.tensor(i, dtype=torch.int32, device=dev))
+                    logits.append(lg.cpu())
+        finally:
+            moe._route = route
+        out[dev] = (logits, routes, time.perf_counter() - t0)
+    (lc, rc, tc), (lh, rh, th) = out[CARD], out["cpu"]
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(lc, lh, strict=True)]
+    check(all(np.isfinite(errs)) and max(errs) <= LM_PARITY_TOL,
+          f"{arch} ({layers} layers, fp32): the card's logits differ from the CPU's by "
+          f"{max(errs):.3g} of their largest (> {LM_PARITY_TOL}): {errs}")
+    margin = None
+    if cfg.moe:
+        check(len(rc) == len(rh), f"{arch}: {len(rc)} routing calls on the card, {len(rh)} "
+              "on the CPU")
+        for call, ((ic, _), (ih, mh)) in enumerate(zip(rc, rh)):
+            bad = (ic != ih).any(dim=-1).nonzero().flatten().tolist()
+            check(not bad, f"{arch}: routing call {call} sends token {bad[:1]} to experts "
+                  f"{ic[bad[:1]].tolist()} on the card and {ih[bad[:1]].tolist()} on the CPU "
+                  f"(the CPU's margin between its k-th and next probability "
+                  f"{float(mh[bad[0]]) if bad else 0:.3g})")
+        margin = min(float(m.min()) for _, m in rh)
+    del model, on
+    torch.cuda.empty_cache()
+    return dict(errs=errs, card_s=tc, cpu_s=th, routing_calls=len(rh), min_margin=margin,
+                params=cfg.param_count())
+
+
+def phase_lm(kernel_mods):
+    """The LM family on the card at its published widths (bf16): qwen2.5-3b
+    at full depth serves ``LM_SERVE`` requests through
+    ``examples/serve_lm.py`` (prefill, the cache filled by ``decode_step``
+    and held to the prefill's logits, greedy decode), then
+    ``prefill_32k`` at batch ``PREFILL_BATCH`` (chunked, ``attn_chunk``
+    1024) and ``decode_32k`` at batch ``QWEN_DECODE_BATCH`` over a seeded
+    32,768-slot cache; mixtral-8x7b at ``MIXTRAL_LAYERS`` layers:
+    ``decode_32k`` at batch 128 and ``long_500k`` at batch 1 over the
+    4,096-slot ring, and ``prefill_32k`` at batch 1.  Each against its
+    bound; the stages of a decode step and a prefill (sections by CUDA
+    events, kernels by ``torch.profiler``); the decode attention's
+    ``einsum`` over one layer's cache, its memory and time; and in fp32 at
+    full width and cut depth, the card against the CPU (``lm_parity``).
+    No K1-K4 launch (their counts set to 0 before and read after)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.registry import LM_DECODE, LM_LONG, LM_PREFILL
+    from repro_torch.examples import serve_lm
+    from repro_torch.models import attention, moe, transformer
+
+    reset(kernel_mods)
+    dev = torch.device(CARD)
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=CARD).manual_seed(17)
+
+    # ---- (a) qwen2.5-3b, full width and depth: a few requests through serve_lm
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_lm.main(["--device", CARD, "--arch", "qwen2.5-3b", "--size", "full",
+                         "--batch", str(LM_SERVE["batch"]), "--prompt-len",
+                         str(LM_SERVE["prompt"]), "--gen", str(LM_SERVE["gen"])])
+    qcfg = res["cfg"]
+    check(res["checked"] and res["finite"]
+          and tuple(res["tokens"].shape) == (LM_SERVE["batch"], LM_SERVE["gen"])
+          and bool(((res["tokens"] >= 0) & (res["tokens"] < qcfg.vocab)).all()),
+          "qwen serve_lm: tokens out of range or logits not finite")
+    B, S, G = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["gen"]
+    pf_ms = bound_ms(*lm_costs(qcfg, B * S, causal_pairs(B, S, None), B))
+    w_bytes, d_ops = lm_costs(qcfg, B, B * (S + G), B)
+    it = torch.finfo(qcfg.dtype).bits // 8
+    cache_bytes = qcfg.n_layers * B * (S + G) * (2 * qcfg.n_kv * qcfg.head_dim * it + 4)
+    dc_ms = bound_ms(w_bytes + cache_bytes, d_ops)
+    log(f"qwen2.5-3b serve_lm at full width ({qcfg.param_count()} parameters, bf16, "
+        f"{qcfg.n_layers} layers): batch {B}, prompt {S}, gen {G}: prefill "
+        f"{res['prefill_s'] * 1e3:.3f} ms ({res['prefill_tok_s']:.1f} tokens/s; bound "
+        f"{pf_ms[0]:.3f} ms by {pf_ms[1]}), decode {res['decode_ms_step']:.3f} ms a step "
+        f"({res['decode_tok_s']:.1f} tokens/s; bound {dc_ms[0]:.3f} ms by {dc_ms[1]}, the "
+        f"whole {S + G}-slot cache read; host clock with synchronize); the cache path "
+        f"filled over the prompt ({res['fill_s']:.2f} s) against the prefill: "
+        f"{res['logits_err']:.3g} of the logits' largest (tolerance "
+        f"{serve_lm.TOL[qcfg.dtype]}); peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- (b) qwen prefill_32k at batch 1, (c) decode_32k at batch 32
+    t0 = time.perf_counter()
+    model = transformer.Transformer(qcfg, device=CARD, seed=0)
+    params = model.params()
+    seq, ctx = LM_PREFILL["seq"], LM_DECODE["ctx"]
+    pf = time_prefill(qcfg, params, seq, rng)
+    log(f"qwen2.5-3b prefill_32k (batch {PREFILL_BATCH}, cut from {LM_PREFILL['batch']}; "
+        f"chunked, attn_chunk {qcfg.attn_chunk}): {pf['ms']:.3f} ms (CUDA events, one pass "
+        f"after a warm-up at {PREFILL_WARM_SEQ}), {PREFILL_BATCH * seq / pf['ms'] * 1e3:.1f} "
+        f"tokens/s; bound {pf['bound_ms']:.3f} ms by {pf['bound_by']} ({pf['ops'] / 1e12:.1f} "
+        f"TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16); {pf['bound_ms'] / pf['ms']:.3f} "
+        f"of it; peak {pf['peak_gb']:.3f} GB")
+    with torch.inference_mode():
+        lm_profile(f"qwen2.5-3b prefill at {PREFILL_WARM_SEQ}", lambda: transformer.prefill(
+            qcfg, params, torch.from_numpy(rng.integers(0, qcfg.vocab, size=(
+                1, PREFILL_WARM_SEQ))).to(dev)))
+    B = QWEN_DECODE_BATCH
+    cache = transformer.make_cache(qcfg, B, ctx, dev)
+    fill_cache(cache, 0, gen)
+    dc = time_decode(qcfg, params, cache, B, ctx - 1, rng)
+    log(f"qwen2.5-3b decode_32k (batch {B}, cut from {LM_DECODE['batch']}; ctx {ctx}, every "
+        f"step at position {ctx - 1}): p50 {dc['p50']:.3f} ms p99 {dc['p99']:.3f} ms a step "
+        f"(CUDA events, {LM_TIMED} after {LM_WARM} warm-up), {B / dc['p50'] * 1e3:.1f} "
+        f"tokens/s; bound {dc['bound_ms']:.3f} ms by {dc['bound_by']} (weights "
+        f"{dc['weight_gb']:.3f} GB + cache {dc['cache_gb']:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {dc['bound_ms'] / dc['p50']:.3f} of it; peak "
+        f"{dc['peak_gb']:.3f} GB")
+    pos = torch.tensor(ctx - 1, dtype=torch.int32, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        lm_profile(f"qwen2.5-3b decode step at batch {B}, ctx {ctx}",
+                   lambda: transformer.decode_step(qcfg, params, cache, tok, pos))
+        # does the decode attention's einsum copy a layer's cache?
+        k, v = cache.k[0], cache.v[0]
+        q = torch.randn((B, 1, qcfg.n_heads, qcfg.head_dim), generator=gen, device=dev,
+                        dtype=qcfg.dtype)
+        q5 = q.reshape(B, 1, qcfg.n_kv, qcfg.n_heads // qcfg.n_kv, qcfg.head_dim)
+        mask = (cache.pos[0] >= 0)[:, None, :]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        scores = torch.einsum("bshgd,bthd->bhgst", q5, k)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - scores.numel() * scores.element_size()
+        sd_ms = cuda_ms(lambda _: attention._sdpa(q, k, v, mask, 1.0 / np.sqrt(qcfg.head_dim)),
+                        reps=5, warmup=1)
+    k_bytes = k.numel() * k.element_size()
+    log(f"  decode attention over one layer's cache ((B, T, n_kv, D) = {tuple(k.shape)}, k "
+        f"and v {k_bytes / 1e9:.3f} GB each): `_sdpa` {sd_ms:.3f} ms (CUDA events, median of "
+        f"5) against {2 * k_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms to read k and v once; the "
+        f"scores' einsum allocates {extra / 1e9:.3f} GB beyond its inputs and output: "
+        + ("a contiguous copy of k (the probabilities' einsum copies v alike), each step and "
+           "layer" if extra >= 0.9 * k_bytes else "no copy of k"))
+    del model, params, cache, k, v, q, q5, mask, scores
+    torch.cuda.empty_cache()
+    log(f"  qwen2.5-3b cells took {time.perf_counter() - t0:.1f} s")
+
+    # ---- mixtral-8x7b, full width, MIXTRAL_LAYERS layers
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(registry.get_arch("mixtral-8x7b").config(),
+                               n_layers=MIXTRAL_LAYERS)
+    model = transformer.Transformer(mcfg, device=CARD, seed=0)
+    params = model.params()
+    log(f"mixtral-8x7b at full width, {MIXTRAL_LAYERS} of "
+        f"{registry.get_arch('mixtral-8x7b').config().n_layers} layers: "
+        f"{sum(p.numel() for p in model.parameters())} parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f} GB bf16) "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    W = mcfg.window
+    for cell, B, ctx in (("decode_32k", LM_DECODE["batch"], LM_DECODE["ctx"]),
+                         ("long_500k", LM_LONG["batch"], LM_LONG["ctx"])):
+        cache = transformer.make_cache(mcfg, B, ctx, dev)
+        fill_cache(cache, ctx - W, gen)
+        dc = time_decode(mcfg, params, cache, B, ctx - 1, rng)
+        need = min(mcfg.n_experts, B * mcfg.top_k)
+        w_need = lm_costs(mcfg, B, B * W, B, experts=need)[0]
+        log(f"mixtral-8x7b {cell} (batch {B}, ctx {ctx}, a {cache.k.shape[2]}-slot ring "
+            f"holding positions {ctx - W}-{ctx - 1}): p50 {dc['p50']:.3f} ms p99 "
+            f"{dc['p99']:.3f} ms a step (CUDA events, {LM_TIMED} after {LM_WARM} warm-up), "
+            f"{B / dc['p50'] * 1e3:.1f} tokens/s; bound {dc['bound_ms']:.3f} ms by "
+            f"{dc['bound_by']} (weights {dc['weight_gb']:.3f} GB with every expert + cache "
+            f"{dc['cache_gb']:.3f} GB), {dc['bound_ms'] / dc['p50']:.3f} of it; with the "
+            f"{need} experts a layer its tokens can reach, weights {w_need / 1e9:.3f} GB, "
+            f"bound {(w_need + dc['cache_gb'] * 1e9) / HBM_BYTES_PER_S * 1e3:.3f} ms; peak "
+            f"{dc['peak_gb']:.3f} GB")
+        if cell == "decode_32k":
+            pos = torch.tensor(ctx - 1, dtype=torch.int32, device=dev)
+            tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+            with torch.inference_mode():
+                lm_profile(f"mixtral-8x7b decode step at batch {B}",
+                           lambda: transformer.decode_step(mcfg, params, cache, tok, pos))
+        del cache
+        torch.cuda.empty_cache()
+    seq = LM_PREFILL["seq"]
+    pf = time_prefill(mcfg, params, seq, rng)
+    log(f"mixtral-8x7b prefill_32k (batch {PREFILL_BATCH}, cut from {LM_PREFILL['batch']}; "
+        f"chunked, window {W}, every chunk computed; MoE cap "
+        f"{moe.capacity(mcfg.moe_cfg, seq)}): {pf['ms']:.3f} ms (CUDA events, one pass after "
+        f"a warm-up at {PREFILL_WARM_SEQ}), {seq / pf['ms'] * 1e3:.1f} tokens/s; bound "
+        f"{pf['bound_ms']:.3f} ms by {pf['bound_by']} ({pf['ops'] / 1e12:.1f} TFLOP), "
+        f"{pf['bound_ms'] / pf['ms']:.3f} of it; peak {pf['peak_gb']:.3f} GB")
+    with torch.inference_mode():
+        lm_profile(f"mixtral-8x7b prefill at {PREFILL_WARM_SEQ}", lambda: transformer.prefill(
+            mcfg, params, torch.from_numpy(rng.integers(0, mcfg.vocab, size=(
+                1, PREFILL_WARM_SEQ))).to(dev)))
+    del model, params
+    torch.cuda.empty_cache()
+    log(f"  mixtral-8x7b cells took {time.perf_counter() - t0:.1f} s")
+
+    # ---- fp32 at full width and cut depth: the card against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    for arch, layers in LM_PARITY_LAYERS.items():
+        r = lm_parity(arch, layers)
+        log(f"{arch} at full width, {layers} layer(s), fp32 ({r['params']} parameters): "
+            f"prefill 1 x {LM_PARITY_SEQ} (chunked, attn_chunk {LM_PARITY_CHUNK}) and "
+            f"{LM_PARITY_STEPS} decode steps at batch {LM_PARITY_BATCH}, card against CPU: "
+            f"largest {max(r['errs']):.3g} of the logits' largest (tolerance "
+            f"{LM_PARITY_TOL}; prefill {r['errs'][0]:.3g})"
+            + (f"; routing equal over {r['routing_calls']} calls (the CPU's smallest margin "
+               f"between a token's k-th and next probability {r['min_margin']:.3g})"
+               if r["min_margin"] is not None else "")
+            + f" (card {r['card_s']:.2f} s, CPU {r['cpu_s']:.2f} s)")
+    launches = counts(kernel_mods)
+    check(not any(launches.values()), f"the LM phase launched K1-K4: {launches}")
+    log(f"launches of K1-K4 in the LM phase: {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2155,6 +2669,8 @@ def main() -> int:
             f"(+{time.perf_counter() - T0:.1f} s)")
         for name, n in phase_training(mods).items():
             launches[name] += n
+        log(f"phase 17: the LM family at full width (+{time.perf_counter() - T0:.1f} s)")
+        phase_lm(mods)
         log(f"phases done (+{time.perf_counter() - T0:.1f} s)")
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()

@@ -7,7 +7,11 @@ tensors with the same bits; ``u32_numpy`` goes back.  This lets an insert
 that one package began continue in the other; ``store_from_arrays`` holds
 both packages on one triple store without going through a file.
 ``state_from_params`` turns a JAX model's params (a nested dict of numpy
-arrays, e.g. Wide & Deep's) into the state dict of the port's module.
+arrays, e.g. Wide & Deep's or an LM's) into the state dict of the port's
+module, and ``kv_cache_from_numpy`` a JAX decode cache into the port's, so
+a decode that JAX began continues in the port.  bfloat16 arrays (numpy's
+``ml_dtypes`` type, as ``np.asarray`` gives a JAX bf16 array) keep their
+bits.
 """
 
 from __future__ import annotations
@@ -82,6 +86,14 @@ def store_from_arrays(strings, term_pat, term_val, s, p, o, perms, cols=None,
     return store
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array -> a tensor of the same dtype and bits on ``device``."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def state_from_params(params, device="cuda") -> dict:
     """A JAX params pytree (nested dicts of arrays, ``np.asarray``-able)
     -> a flat state dict keyed ``"mlp.fc0.w"``, as the port's modules name
@@ -93,7 +105,23 @@ def state_from_params(params, device="cuda") -> dict:
             for k, v in node.items():
                 walk(f"{prefix}{k}.", v)
         else:
-            out[prefix[:-1]] = torch.from_numpy(np.array(node)).to(device)
+            out[prefix[:-1]] = _tensor(node, device)
 
     walk("", params)
     return out
+
+
+def kv_cache_from_numpy(k, v, pos, device="cuda"):
+    """A JAX ``KVCache``'s fields (``np.asarray`` of each; stacked with a
+    leading L axis from ``transformer.make_cache``, or one layer's) -> the
+    port's ``attention.KVCache`` on ``device``: ``k``/``v`` in their dtype,
+    ``pos`` int32."""
+    from repro_torch.models.attention import KVCache
+
+    k, v = _tensor(k, device), _tensor(v, device)
+    pos = _i32(pos, device)
+    if k.shape != v.shape or tuple(pos.shape) != tuple(k.shape[:-2]):
+        raise ValueError(f"a KV cache is k and v of one shape (..., T, n_kv, D) and pos "
+                         f"(..., T); got {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(pos.shape)}")
+    return KVCache(k=k, v=v, pos=pos)

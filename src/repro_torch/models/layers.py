@@ -19,13 +19,14 @@ from torch import nn
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.float32,
-               bias: bool = False, device="cuda") -> dict:
+               bias: bool = False, device="cuda", lead: tuple = ()) -> dict:
+    """``lead`` prepends axes to every leaf (``(L,)`` for a stack of layers)."""
     scale = 1.0 / math.sqrt(d_in)
-    w = torch.empty((d_in, d_out), dtype=dtype, device=device).uniform_(-scale, scale,
-                                                                        generator=gen)
+    w = torch.empty((*lead, d_in, d_out), dtype=dtype, device=device).uniform_(
+        -scale, scale, generator=gen)
     p = {"w": w}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
     return p
 
 
@@ -36,8 +37,8 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def rmsnorm_init(dim: int, dtype=torch.float32, device="cuda") -> dict:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def rmsnorm_init(dim: int, dtype=torch.float32, device="cuda", lead: tuple = ()) -> dict:
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device)}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -46,9 +47,9 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
 
 
-def layernorm_init(dim: int, dtype=torch.float32, device="cuda") -> dict:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
-            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+def layernorm_init(dim: int, dtype=torch.float32, device="cuda", lead: tuple = ()) -> dict:
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, dim), dtype=dtype, device=device)}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -86,12 +87,12 @@ def mlp(p, x: torch.Tensor, act=torch.relu, final_act: bool = False) -> torch.Te
 
 
 def glu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32,
-             device="cuda") -> dict:
+             device="cuda", lead: tuple = ()) -> dict:
     """Gated linear unit block (SwiGLU/GeGLU share the structure)."""
     return {
-        "up": dense_init(gen, d_model, d_ff, dtype, device=device),
-        "gate": dense_init(gen, d_model, d_ff, dtype, device=device),
-        "down": dense_init(gen, d_ff, d_model, dtype, device=device),
+        "up": dense_init(gen, d_model, d_ff, dtype, device=device, lead=lead),
+        "gate": dense_init(gen, d_model, d_ff, dtype, device=device, lead=lead),
+        "down": dense_init(gen, d_ff, d_model, dtype, device=device, lead=lead),
     }
 
 

@@ -641,3 +641,43 @@ def test_train_step_on_card_matches_cpu(dev, dedup):
     np.testing.assert_allclose(mc[:, 1], mh[:, 1], rtol=1e-3)
     for k, v in p0.items():
         assert float((pc[k] - ph[k]).norm()) <= 0.05 * float((ph[k] - v).norm()), k
+
+
+LM_ARCHS = ["qwen2.5-3b", "gemma-2b", "mixtral-8x7b", "dbrx-132b", "command-r-plus-104b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_prefill_and_decode_on_card_match_cpu(dev, arch):
+    """An LM smoke config's prefill (on the chunked path, ``attn_chunk`` 4
+    at seq 12) and 6 decode steps on the card against a CPU copy of the
+    same weights, in fp32 without TF32: logits within 1e-4 of their largest
+    magnitude (``chip_smoke.py`` phase 17's tolerance), the caches' k and v
+    alike and pos equal."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_arch(arch).smoke_config(), attn_chunk=4)
+    model = transformer.Transformer(cfg, device="cpu", seed=3)
+    toks = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab, size=(2, 12)).astype(np.int32))
+    def run(device):
+        """-> the prefill's logits, each decode step's and the cache, on the CPU."""
+        params = transformer.nest({k: v.to(device) for k, v in model.state_dict().items()})
+        with torch.inference_mode():
+            outs = [transformer.prefill(cfg, params, toks.to(device)).cpu()]
+            cache = transformer.make_cache(cfg, 2, 8, device)
+            for i in range(6):
+                logits, cache = transformer.decode_step(
+                    cfg, params, cache, toks[:, i:i + 1].to(device),
+                    torch.tensor(i, dtype=torch.int32, device=device))
+                outs.append(logits.cpu())
+        return outs, [x.cpu() for x in cache]
+
+    (card, (ck, cv, cpos)), (host, (hk, hv, hpos)) = run(dev), run("cpu")
+    for got, want in [*zip(card, host, strict=True), (ck, hk), (cv, hv)]:
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, err
+    assert torch.equal(cpos, hpos)
