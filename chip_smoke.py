@@ -30,16 +30,18 @@ Phases, each of which makes the script exit non-zero when it fails:
      after: the optimized engine (sorted PJTT) on every testbed and the
      naive engine on the 1M OJM (the paper's "did not finish" cell); at
      100K the naive engine (SOM; OJM at 20K), the hash PJTT (OJM at 20K)
-     and the streamed engine (SOM, OJM).  The 100K runs, and the naive and
-     hash OJM at 20K, are repeated on the CPU and their N-Triples must be byte-identical to
-     the card's; every 1M output must hold no duplicate line, exactly the
+     and the streamed engine (SOM, OJM).  The 100K runs but the optimized
+     OJM's, and the optimized, naive and hash OJM at 20K, are repeated on
+     the CPU and their N-Triples must be byte-identical to the card's (the
+     streamed OJM at 20K); every 1M output must hold no duplicate line, exactly the
      distinct triples a numpy count of the CSV gives, and the same sorted
      lines as the optimized eager run; a profiled rerun of the optimized
      and the naive OJM 100K runs gives the card's busy share over a whole
      run;
-  6. write ``.kgz`` stores with ``rdfize --emit kgz`` on the card at 100K and
-     1M rows (SOM and OJM); at 100K the card's bytes must equal a
-     ``--device cpu`` run's;
+  6. write ``.kgz`` stores with ``rdfize --emit kgz`` on the card at 100K
+     rows (SOM and OJM; at 1M phase 5 writes them from its optimized
+     results with the calls ``--emit kgz`` makes); the card's bytes must
+     equal a ``--device cpu`` run's for SOM at 100K and OJM at 20K;
   7. hold K4 (``scan_join``, the serving fast path) against its plain
      version on the card, exactly, for the ``single`` and ``bgp3`` chains of
      ``serve/bench.py`` at batch 1, 8 and 64 over the 1M stores, at the
@@ -49,8 +51,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      print its chain of dependent loads (the k-ary searches' and a
      bisection's);
   8. serve the six ``serve/bench.py`` query classes at batch 1, 8, 64 and
-     4096: the card's rows must equal the CPU's over the 100K stores (and
-     the 1M stores at batch 1 and 64), and over the 100K stores a query a class must equal
+     4096: the card's rows must equal the CPU's over the 100K stores at
+     batch 1, 64 and 4096 (and the 1M stores at batch 1), and over the
+     SOM 100K and OJM 20K stores a query a class must equal
      ``oracle_select``'s; then ``serve.bench.bench_serve`` over the 1M
      stores on the card (K4's launch count set to 0 just before, and above
      0 just after, or the phase fails) prints queries/s and p50/p99
@@ -60,21 +63,23 @@ Phases, each of which makes the script exit non-zero when it fails:
      10K and 100K rows, every kind, duplicate rate, 1 and 2 predicate-object
      maps, optimized and naive: each 10K cell's triples and φ statistics
      equal a CPU run's, and ``bench.op_model`` at 10K gives the CPU's φ;
- 10. a live store over the 1M OJM store: 10,000 inserts (new terms among
+     ``examples/kg_biomedical.py`` at 20K rows on the card and the CPU:
+     the same triples, counts and φ ratios;
+ 10. a live store over the 100K OJM store: 10,000 inserts (new terms among
      them) and 10,000 deletes (re-inserts and duplicates among them); the
      six bench classes at batch 1, 64 and 4096 through the overlay equal a
      from-scratch build of the mutated set; a ``save_delta`` /
      ``load_chain`` round trip; compaction byte-identical to that build;
-     at 100K the same sequence on the CPU gives the card's rows and bytes;
- 11. ``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted);
-     at 100K, serial and with 2 spawned workers (the same bytes), and the
-     card's bytes equal the CPU's; the shards' union is the unsharded
+     the same sequence on the CPU gives the card's rows and bytes;
+ 11. ``rdfize --emit kgz --shards 4`` at 100K OJM, serial (K1/K2 counted)
+     and with 2 spawned workers (the same bytes); at 20K the card's bytes
+     equal the CPU's; the shards' union is the unsharded
      store, each triple on its subject's shard; ``launch.query`` and the
      shard session answer the six classes at batch 1 and 64 as the
      unsharded store does;
  12. a ``KGServer`` over the 1M OJM store with a client (the six classes,
      round-trip p50/p99 at batch 1, a live insert/delete round trip), then
-     a ``Coordinator`` over the 4 shards in spawned server processes; K4's
+     a ``Coordinator`` over the 4 100K shards in spawned server processes; K4's
      launch count is set to 0 before and must be above 0 after;
  13. ``bench.dedup_gather.run`` at its defaults (vocab 1M, dim 64, 262,144
      ids, duplicate factors 1/4/16/64): the values equal a plain
@@ -116,7 +121,20 @@ Phases, each of which makes the script exit non-zero when it fails:
      and in fp32 at full width (qwen 2 layers, mixtral 1) the card against
      the CPU (logits within 1e-4 of their largest, routing equal); no
      K1-K4 launch;
- 18. print the kernels line (one JSON object, all four kernels), the card
+ 18. LM training (``phase_lm_train``): qwen2.5-3b at full width, all 36
+     layers, bf16, per-layer remat, through ``configs.cells.lm_train_step``
+     at batch 3 x 4,096 (``train_4k`` cut from 256): step, forward+backward
+     and AdamW ms, peak memory and a falling loss beside their bounds;
+     remat off against on at 2 and 4 layers; in fp32 at 2 layers, two
+     steps on the card against the CPU; no K1-K4 launch;
+ 19. GNN training (``phase_gnn``): the four GNNs at their published widths
+     on all 16 ``GNN_SHAPES`` cells through ``configs.cells.gnn_train_step``
+     (graphs cut by ``GNN_CUTS`` only where the card cannot hold them):
+     step ms, peak memory and loss beside a bound, the small cells' 12
+     losses held to JAX's from the same weights; the smoke configs in
+     fp32 on the card against the CPU; a ``NeighborSampler`` batch at
+     ``minibatch_lg``'s fanout, its dedup ratio; no K1-K4 launch;
+ 20. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
@@ -668,16 +686,25 @@ def _distinct_pairs(a, b) -> int:
     return len(np.unique(ia.astype(np.int64) * (int(ib.max()) + 1) + ib))
 
 
+_EXPECTED: dict = {}  # testbed directory -> expected_triples (one count a testbed)
+
+
+def _expected_triples(d: str, tb) -> dict[str, int]:
+    if d not in _EXPECTED:
+        _EXPECTED[d] = expected_triples(tb, d)
+    return _EXPECTED[d]
+
+
 def expected_triples(tb, d) -> dict[str, int]:
     """Distinct (subject, object) value pairs per predicate, by numpy from
-    the written CSV files."""
+    the written CSV files (plain comma-separated cells, no quoting)."""
     import numpy as np
 
     def read(path):
         with open(path, encoding="utf-8") as f:
-            header = f.readline().rstrip("\n").split(",")
-        cells = np.loadtxt(path, dtype=str, delimiter=",", skiprows=1, comments=None)
-        return {h: cells[:, i] for i, h in enumerate(header)}
+            header, *rows = f.read().splitlines()
+        cols = zip(*(r.split(",") for r in rows))
+        return {h: np.array(c) for h, c in zip(header.split(","), cols, strict=True)}
 
     tables = {"child.csv": read(os.path.join(d, "child.csv"))}
     if tb.parent is not None:
@@ -725,6 +752,11 @@ def sorted_digest(lines) -> str:
 
 
 def phase_rdfize(beds, kernel_mods):
+    """Returns the launches, and the 1M ``.kgz`` paths: each written from
+    the optimized 1M run's result by the two calls ``rdfize --emit kgz``
+    makes (``KGResult.to_store`` on the card, ``persist.save``), where a
+    second 1M ingest each ran until the run needed the time (PERF.md)."""
+    from repro_torch.kg import persist
     from repro_torch.launch import rdfize
 
     def run(kind, n_rows, path, device):
@@ -768,27 +800,35 @@ def phase_rdfize(beds, kernel_mods):
         os.remove(cpu_out)
 
     totals = {name: 0 for name in kernel_mods}
-    digests = {}
+    digests, kgz = {}, {}
     for n_rows in (ROWS_SMALL, ROWS_PAPER):  # the optimized eager engine
         for kind in ("SOM", "OJM"):
             result, out = run_on_card(kind, n_rows, "optimized")
-            if n_rows == ROWS_SMALL:
-                same_bytes_as_cpu(kind, n_rows, "optimized", out)
-            else:
+            if n_rows == ROWS_PAPER:
                 check_paper_tier(beds, kind, "optimized", result, out, digests)
+                tb, d, _ = beds[(kind, n_rows)]
+                kgz[(kind, n_rows)] = os.path.join(d, "kg-cuda-0.kgz")
+                t0 = time.perf_counter()
+                persist.save(result.to_store(device=CARD), kgz[(kind, n_rows)])
+                log(f"{tb.name}: .kgz written from the optimized run's result (to_store on "
+                    f"the card, persist.save) in {time.perf_counter() - t0:.3f} s, "
+                    f"{os.path.getsize(kgz[(kind, n_rows)])} bytes")
+            elif kind == "SOM":  # the OJM against the CPU at 20K below
+                same_bytes_as_cpu(kind, n_rows, "optimized", out)
             os.remove(out)
 
     # the naive OJM at the paper's tier (its "did not finish" cell) against
     # the optimized eager run's sorted lines; then the paths of slice 2 on
     # the small tier, cuda against cpu (the 1M hash-PJTT, streamed and naive
-    # SOM reruns, and the hash PJTT's at 100K, were cut to keep the run
-    # inside its time: PERF.md)
+    # SOM reruns, and the hash PJTT's, the optimized and the streamed OJM's
+    # CPU runs at 100K, were cut to keep the run inside its time: PERF.md)
     result, out = run_on_card("OJM", ROWS_PAPER, "naive")
     check_paper_tier(beds, "OJM", "naive", result, out, digests)
     os.remove(out)
-    for path, kind, n_rows in (("naive", "SOM", ROWS_SMALL), ("naive", "OJM", ROWS_NAIVE_CPU),
+    for path, kind, n_rows in (("optimized", "OJM", ROWS_NAIVE_CPU),
+                               ("naive", "SOM", ROWS_SMALL), ("naive", "OJM", ROWS_NAIVE_CPU),
                                ("hash", "OJM", ROWS_NAIVE_CPU), ("stream", "SOM", ROWS_SMALL),
-                               ("stream", "OJM", ROWS_SMALL)):
+                               ("stream", "OJM", ROWS_NAIVE_CPU)):
         _, out = run_on_card(kind, n_rows, path)
         same_bytes_as_cpu(kind, n_rows, path, out)
         os.remove(out)
@@ -824,7 +864,7 @@ def phase_rdfize(beds, kernel_mods):
             f"idle {100 - 100 * busy / wall:.3f}%); {len(dev)} device events; "
             + ", ".join(f"{k} {v:.4f} s" for k, v in per.items())
             + f", other device work {busy - sum(per.values()):.4f} s")
-    return totals
+    return totals, kgz
 
 
 def check_paper_tier(beds, kind, path, result, out, digests) -> None:
@@ -835,7 +875,7 @@ def check_paper_tier(beds, kind, path, result, out, digests) -> None:
         lines = f.read().splitlines()
     check(len(lines) == result.n_triples, f"{tb.name} {path}: line count")
     check(len(set(lines)) == len(lines), f"{tb.name} {path}: duplicate N-Triples lines")
-    want = expected_triples(tb, d)
+    want = _expected_triples(d, tb)  # one count a testbed, for each engine's run
     got = {p: st.n_unique for p, st in result.stats.items()}
     check(got == want, f"{tb.name} {path}: triples per predicate {got} != numpy {want}")
     digest = sorted_digest(lines)
@@ -855,40 +895,42 @@ OPS_PER_ROUND = 8  # K4: midpoint, clamp, two compares, the select of lo/hi
 OPS_PER_CX_COLUMN = 3  # K4's sort: compare, and a swap's two selects, a column
 
 
-def phase_kgz(beds, kernel_mods):
-    """``rdfize --emit kgz`` on the card at both tiers; at 100K the CPU's
-    bytes must equal the card's.  Returns the .kgz paths and the launches."""
+def phase_kgz(beds, kernel_mods, kgz_1m):
+    """``rdfize --emit kgz`` on the card at 100K and 20K; the CPU's bytes
+    must equal the card's for SOM at 100K and OJM at 20K (at 100K until the
+    run needed the time: PERF.md).  The 1M stores are phase 5's
+    (``kgz_1m``).  Returns the .kgz paths and the launches."""
     from repro_torch.launch import rdfize
 
-    paths, totals = {}, {name: 0 for name in kernel_mods}
-    for n_rows in (ROWS_SMALL, ROWS_PAPER):
-        for kind in ("SOM", "OJM"):
-            tb, d, _ = beds[(kind, n_rows)]
-            out = {}
-            for device in (CARD, "cpu") if n_rows == ROWS_SMALL else (CARD,):
-                out[device] = os.path.join(d, f"kg-{device}-{len(out)}.kgz")
-                for mod in kernel_mods.values():
-                    mod.launches = 0
-                t0 = time.perf_counter()
-                rdfize.main(["--mapping", os.path.join(d, "map.ttl"), "--data-root", d,
-                             "--out", out[device], "--device", device, "--emit", "kgz"])
-                wall = time.perf_counter() - t0
-                with open(out[device], "rb") as f:
-                    digest = hashlib.sha256(f.read()).hexdigest()
-                counts = {name: mod.launches for name, mod in kernel_mods.items()}
-                log(f"rdfize --emit kgz {tb.name} on {device}: {wall:.3f} s end to end, "
-                    f"{os.path.getsize(out[device])} bytes, sha256 {digest[:16]}; "
-                    f"launches {counts}")
-                if device == CARD:
-                    for name in ("hash_mix", "bucket_dedup"):
-                        check(counts[name] > 0, f"{name} was never launched on --emit kgz")
-                    for name in totals:
-                        totals[name] += counts[name]
-            if n_rows == ROWS_SMALL:
-                with open(out[CARD], "rb") as f1, open(out["cpu"], "rb") as f2:
-                    check(f1.read() == f2.read(), f"{tb.name}: cuda and cpu .kgz differ")
-                log(f"{tb.name}: cuda and cpu .kgz are byte-identical")
-            paths[(kind, n_rows)] = out[CARD]
+    paths, totals = dict(kgz_1m), {name: 0 for name in kernel_mods}
+    against_cpu = {("SOM", ROWS_SMALL), ("OJM", ROWS_NAIVE_CPU)}
+    for kind, n_rows in (("SOM", ROWS_SMALL), ("OJM", ROWS_SMALL), ("OJM", ROWS_NAIVE_CPU)):
+        tb, d, _ = beds[(kind, n_rows)]
+        out = {}
+        for device in (CARD, "cpu") if (kind, n_rows) in against_cpu else (CARD,):
+            out[device] = os.path.join(d, f"kg-{device}-{len(out)}.kgz")
+            for mod in kernel_mods.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            rdfize.main(["--mapping", os.path.join(d, "map.ttl"), "--data-root", d,
+                         "--out", out[device], "--device", device, "--emit", "kgz"])
+            wall = time.perf_counter() - t0
+            with open(out[device], "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            counts = {name: mod.launches for name, mod in kernel_mods.items()}
+            log(f"rdfize --emit kgz {tb.name} on {device}: {wall:.3f} s end to end, "
+                f"{os.path.getsize(out[device])} bytes, sha256 {digest[:16]}; "
+                f"launches {counts}")
+            if device == CARD:
+                for name in ("hash_mix", "bucket_dedup"):
+                    check(counts[name] > 0, f"{name} was never launched on --emit kgz")
+                for name in totals:
+                    totals[name] += counts[name]
+        if (kind, n_rows) in against_cpu:
+            with open(out[CARD], "rb") as f1, open(out["cpu"], "rb") as f2:
+                check(f1.read() == f2.read(), f"{tb.name}: cuda and cpu .kgz differ")
+            log(f"{tb.name}: cuda and cpu .kgz are byte-identical")
+        paths[(kind, n_rows)] = out[CARD]
     return paths, totals
 
 
@@ -1065,11 +1107,11 @@ def phase_serve(stores):
     from repro_torch.serve import bench, oracle_select, parse_select
     from repro_torch.serve.exec import get_executor
 
-    # rows: the card against the CPU at both tiers (at 1M at batch 1 and 64
-    # only, to keep the run inside its time: PERF.md), a sample against the
-    # oracle
+    # rows: the card against the CPU at both tiers (at 100K at batch 1, 64
+    # and 4096, at 1M at batch 1, to keep the run inside its time: PERF.md),
+    # a sample against the oracle
     for n_rows in (ROWS_SMALL, ROWS_PAPER):
-        batches_checked = SERVE_BATCHES if n_rows == ROWS_SMALL else (1, 64)
+        batches_checked = (1, 64, 4096) if n_rows == ROWS_SMALL else (1,)
         for kind in ("SOM", "OJM"):
             gpu, cpu = (stores[(kind, n_rows, d)] for d in ("cuda", "cpu"))
             p0, classes = bench._classes(gpu)
@@ -1083,14 +1125,20 @@ def phase_serve(stores):
                         res[d] = ex.execute_encoded(plan, batches[0], fops)
                     check(_results_equal(res["cuda"], res["cpu"], batch),
                           f"{kind} {n_rows} {name} batch {batch}: card and CPU rows differ")
-                if n_rows == ROWS_SMALL:
-                    q = parse_select(qtext)
-                    got = get_executor(gpu).solve(q).rows(0)
-                    check(got == oracle_select(cpu, q),
-                          f"{kind} 100K {name}: rows differ from oracle_select")
             log(f"{kind} {n_rows}: rows of every class at batch {batches_checked} equal on the "
-                f"card and the CPU" + (", and oracle_select's for one query a class"
-                                       if n_rows == ROWS_SMALL else ""))
+                f"card and the CPU")
+    # oracle_select (a plain evaluation, seconds a query on the host) for one
+    # query a class over SOM 100K and OJM 20K (100K until the run needed the
+    # time: PERF.md)
+    for kind, n_rows in (("SOM", ROWS_SMALL), ("OJM", ROWS_NAIVE_CPU)):
+        gpu, cpu = (stores[(kind, n_rows, d)] for d in ("cuda", "cpu"))
+        p0, classes = bench._classes(gpu)
+        for name, qtext in classes:
+            q = parse_select(qtext)
+            got = get_executor(gpu).solve(q).rows(0)
+            check(got == oracle_select(cpu, q), f"{kind} {n_rows} {name}: rows differ from "
+                  "oracle_select")
+        log(f"{kind} {n_rows}: the card's rows of one query a class equal oracle_select's")
 
     # throughput and latency over the 1M stores on the card: serve/bench.py's
     # own loop (per-dispatch latency histograms), every class at batch 1, 8,
@@ -1154,11 +1202,12 @@ def phase_serve(stores):
 FIG_SIZES = (10_000, 100_000)  # paper_figs here; the 1M tier: bench.paper_figs --full
 FIG_POMS = (1, 2)
 LIVE_BATCHES = (1, 64, 4096)
-LIVE_B1_TEXTS = 32  # distinct batch-1 overlay queries a class, each checked
-LIVE_TIMED = {1: 64, 64: 8, 4096: 4}  # warm overlay dispatches timed a class
+LIVE_B1_TEXTS = 16  # distinct batch-1 overlay queries a class, each checked
+LIVE_TIMED = {1: 16, 64: 8, 4096: 4}  # warm overlay dispatches timed a class
 N_MUT = 10_000  # the live phase's inserts, and its deletes
 N_SHARDS = 4
-SERVER_TIMED_PASSES = 2  # timed round trips a class: 2 passes over 64 texts
+SERVER_TIMED_PASSES = 1  # timed round trips a class: 1 pass over its texts
+SERVER_TEXTS = 16  # round-trip texts a class (64 until the run needed the time: PERF.md)
 
 
 def reset(kernel_mods) -> None:
@@ -1219,7 +1268,50 @@ def phase_paper_figs(kernel_mods):
         log(f"op_model {r['kind']} n={r['rows']} dup={int(r['dup'] * 100)}%: |Np|={r['Np']} "
             f"|Sp|={r['Sp']} phi={r['phi']} phi_naive={r['phi_naive']} "
             f"ratio={r['ratio']:.1f}x (equal to the CPU run's)")
+    for name, n in kg_example(kernel_mods).items():
+        got[name] += n
     return got
+
+
+KG_EXAMPLE_ROWS = 20_000
+
+
+def kg_example(kernel_mods) -> dict:
+    """``examples/kg_biomedical.py`` at ``KG_EXAMPLE_ROWS`` rows on the card
+    and on the CPU: each testbed's triples (``as_set``) and every printed
+    count and phi ratio equal (times masked).  Returns the card run's
+    launches."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.examples import kg_biomedical
+
+    out = {}
+    for dev in (CARD, "cpu"):
+        before = counts(kernel_mods)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = kg_biomedical.main(["--rows", str(KG_EXAMPLE_ROWS), "--device", dev])
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in counts(kernel_mods).items()}
+        lines = [re.sub(r"\s+\d+\.\d+x$", "", re.sub(r"\s*\d+\.\d+s\b", " <s>", line))
+                 for line in buf.getvalue().splitlines()]
+        out[dev] = (res, lines, buf.getvalue(), wall, launched)
+    (rc, lc, text, wall_c, launched), (rh, lh, _, wall_h, _) = out[CARD], out["cpu"]
+    check(lc == lh, "kg_biomedical: the card's printed counts or phi ratios differ from the "
+          f"CPU's:\n{lc}\n{lh}")
+    for kind in rc:
+        check(rc[kind][0].as_set() == rh[kind][0].as_set(),
+              f"kg_biomedical {kind}: the card's triples differ from the CPU's")
+    for name in ("hash_mix", "nested_join"):
+        check(launched[name] > 0, f"kg_biomedical on the card never launched {name}")
+    print(text, end="", flush=True)
+    log(f"kg_biomedical at {KG_EXAMPLE_ROWS} rows: card {wall_c:.2f} s, CPU {wall_h:.2f} s "
+        f"wall; every testbed's triples and the printed counts and phi ratios equal the "
+        f"CPU run's; launches {launched}")
+    return launched
 
 
 def class_queries(store, batch: int, seed: int = 2):
@@ -1308,22 +1400,26 @@ def apply_mutations(live, ops):
     return model, done
 
 
+LIVE_ROWS = ROWS_SMALL  # the live store's base (1M until the run needed the time: PERF.md)
+
+
 def phase_live(stores, paths):
-    """A live store over the 1M OJM store: 10,000 inserts (new terms
+    """A live store over the 100K OJM store: 10,000 inserts (new terms
     among them) and 10,000 deletes with re-inserts and duplicates; the six
     bench classes at batch 1, 64 and 4096 through the overlay equal a
     from-scratch build of the mutated set; a delta-snapshot round trip;
-    compaction byte-identical to that build; and at 100K the same sequence
-    on the CPU gives the card's rows and compacted bytes."""
+    compaction byte-identical to that build; and the same sequence on the
+    CPU gives the card's rows and compacted bytes."""
     from repro_torch.kg import persist
     from repro_torch.kg.store import TripleStore
     from repro_torch.live import LiveStore
 
-    base = stores[("OJM", ROWS_PAPER, "cuda")]
+    base = stores[("OJM", LIVE_ROWS, "cuda")]
+    tier = f"{LIVE_ROWS // 1000}K OJM"
     live = LiveStore(base)
     model, done = apply_mutations(live, mutations(base))
     for op, n, res, ms in done:
-        log(f"live 1M OJM {op} of {n} triples: {res} in {ms:.1f} ms")
+        log(f"live {tier} {op} of {n} triples: {res} in {ms:.1f} ms")
     check(set(live.rendered_triples()) == model, "live: the live triple set is not the model's")
     check(live.n_triples == len(model), "live: n_triples")
     t0 = time.perf_counter()
@@ -1358,11 +1454,21 @@ def phase_live(stores, paths):
                    for k in range(LIVE_TIMED[batch])]
             spread = (f"p50 {pct(lat, 50):.3f} ms, p99 {pct(lat, 99):.3f} ms" if batch == 1
                       else f"median {pct(lat, 50):.3f} ms, max {max(lat):.3f} ms")
-            log(f"live 1M OJM overlay {name} batch {batch}: {n_rows} rows equal the rebuilt "
+            log(f"live {tier} overlay {name} batch {batch}: {n_rows} rows equal the rebuilt "
                 f"store's; dispatch {spread} over {len(lat)} warm dispatches")
 
-    # a delta snapshot chained to the served 1M .kgz, resolved back
-    parent = paths[("OJM", ROWS_PAPER)]
+    # the same sequence on the CPU: the card's overlay rows equal its rows
+    cpu_base = stores[("OJM", LIVE_ROWS, "cpu")]
+    cpu_live = LiveStore(cpu_base)
+    apply_mutations(cpu_live, mutations(cpu_base))
+    for batch in LIVE_BATCHES:
+        for name, texts in class_queries(base, batch).items():
+            a, _ = run_texts(base, texts, view=live.view())
+            b, _ = run_texts(cpu_base, texts, view=cpu_live.view())
+            check(_results_equal(a, b, batch), f"live {tier} {name} batch {batch}: card != CPU")
+
+    # a delta snapshot chained to the served .kgz, resolved back
+    parent = paths[("OJM", LIVE_ROWS)]
     delta = os.path.join(os.path.dirname(parent), "live.delta.kgz")
     t0 = time.perf_counter()
     persist.save_delta(live, delta, os.path.basename(parent))
@@ -1377,50 +1483,42 @@ def phase_live(stores, paths):
 
     t0 = time.perf_counter()
     compacted = live.compact()
-    log(f"compact 1M OJM live store: {time.perf_counter() - t0:.2f} s")
+    log(f"compact {tier} live store: {time.perf_counter() - t0:.2f} s")
     blobs = []
     for st in (compacted, scratch):
         out = os.path.join(os.path.dirname(parent), f"compacted-{len(blobs)}.kgz")
         persist.save(st, out, generation=1)
         with open(out, "rb") as f:
             blobs.append(f.read())
-    check(blobs[0] == blobs[1], "compacted 1M store's bytes differ from the rebuilt store's")
+    check(blobs[0] == blobs[1], "compacted store's bytes differ from the rebuilt store's")
     for name, texts in class_queries(scratch, 64).items():
         a, _ = run_texts(compacted, texts)
         b, _ = run_texts(scratch, texts)
         check(_results_equal(a, b, 64), f"live {name}: compacted rows differ")
-    log(f"compacted 1M store: {len(blobs[0])} bytes, equal to the rebuilt store's; rows equal")
+    log(f"compacted {tier} store: {len(blobs[0])} bytes, equal to the rebuilt store's; rows "
+        "equal")
 
-    # the 100K sequence on the card and on the CPU: equal rows and bytes
-    small = {}
-    for dev in ("cuda", "cpu"):
-        st = stores[("OJM", ROWS_SMALL, dev)]
-        lv = LiveStore(st)
-        apply_mutations(lv, mutations(st))
-        small[dev] = (st, lv)
-    for batch in LIVE_BATCHES:
-        for name, texts in class_queries(small["cuda"][0], batch).items():
-            a, _ = run_texts(small["cuda"][0], texts, view=small["cuda"][1].view())
-            b, _ = run_texts(small["cpu"][0], texts, view=small["cpu"][1].view())
-            check(_results_equal(a, b, batch), f"live 100K {name} batch {batch}: card != CPU")
-    blobs = []
-    for dev in ("cuda", "cpu"):
-        out = os.path.join(os.path.dirname(parent), f"compacted-100k-{dev}.kgz")
-        persist.save(small[dev][1].compact(), out, generation=1)
-        with open(out, "rb") as f:
-            blobs.append(f.read())
-    check(blobs[0] == blobs[1], "live 100K: compacted bytes differ between the card and the CPU")
-    log("live 100K OJM: the card's overlay rows (every class, batch 1/64/4096) and compacted "
+    # the same sequence on the CPU: its compacted bytes equal the card's
+    out = os.path.join(os.path.dirname(parent), "compacted-cpu.kgz")
+    persist.save(cpu_live.compact(), out, generation=1)
+    with open(out, "rb") as f:
+        check(f.read() == blobs[0], f"live {tier}: compacted bytes differ between the card and "
+              "the CPU")
+    log(f"live {tier}: the card's overlay rows (every class, batch 1/64/4096) and compacted "
         "bytes equal the CPU's")
 
 
+SHARD_ROWS = ROWS_SMALL  # sharded ingest's tier (1M until the run needed the time: PERF.md)
+SHARD_BATCH = 16  # the shard session's batch a class (64 until the run needed the time)
+
+
 def phase_shards(beds, kernel_mods, stores, paths):
-    """``rdfize --emit kgz --shards 4`` at 1M OJM, serial (K1/K2 counted);
-    at 100K serial and with 2 spawned workers (same bytes), and the card's
-    shard bytes equal the CPU's; the shards' union is the unsharded store's
-    triples, each on its subject's shard; ``launch.query`` and the shard
-    session answer the six classes as the unsharded store does.  Returns
-    the serial run's launches and the 1M manifest's path."""
+    """``rdfize --emit kgz --shards 4`` at 100K OJM, serial (K1/K2 counted)
+    and with 2 spawned workers (same bytes); at 20K the card's shard bytes
+    equal the CPU's; the shards' union is the unsharded store's triples,
+    each on its subject's shard; ``launch.query`` and the shard session
+    answer the six classes as the unsharded store does.  Returns the serial
+    run's launches and the manifest's path."""
     import contextlib
     import io
 
@@ -1453,21 +1551,20 @@ def phase_shards(beds, kernel_mods, stores, paths):
         return manifest, blobs
 
     reset(kernel_mods)
-    manifest, serial = build(ROWS_PAPER, CARD, 0)
+    manifest, serial = build(SHARD_ROWS, CARD, 0)
     got = counts(kernel_mods)
     log(f"  launches during the serial sharded ingest: {got}")
     for name in ("hash_mix", "bucket_dedup"):
         check(got[name] > 0, f"{name} was never launched by the sharded ingest")
-    # the spawned workers at 100K (at 1M until the run needed the time: PERF.md)
-    _, small_card = build(ROWS_SMALL, CARD, 0)
-    _, spawned = build(ROWS_SMALL, CARD, 2)
-    check(spawned == small_card, "sharded ingest: 2 spawned workers wrote other bytes than serial")
-    _, small_cpu = build(ROWS_SMALL, "cpu", 0)
-    check(small_card == small_cpu, "sharded ingest 100K: the card's bytes differ from the CPU's")
-    log("100K: the manifest and shard bytes of 2 spawned workers equal the serial run's, "
-        "and the card's equal the CPU's")
+    _, spawned = build(SHARD_ROWS, CARD, 2)
+    check(spawned == serial, "sharded ingest: 2 spawned workers wrote other bytes than serial")
+    _, tiny_card = build(ROWS_NAIVE_CPU, CARD, 0)
+    _, tiny_cpu = build(ROWS_NAIVE_CPU, "cpu", 0)
+    check(tiny_card == tiny_cpu, "sharded ingest 20K: the card's bytes differ from the CPU's")
+    log(f"{SHARD_ROWS // 1000}K: the manifest and shard bytes of 2 spawned workers equal the "
+        f"serial run's; {ROWS_NAIVE_CPU // 1000}K: the card's equal the CPU's")
 
-    unsharded = stores[("OJM", ROWS_PAPER, "cuda")]
+    unsharded = stores[("OJM", SHARD_ROWS, "cuda")]
     want = set(LiveStore(unsharded).rendered_triples())
     union = 0
     for i, entry in enumerate(persist.load_manifest(manifest)["shards"]):
@@ -1481,9 +1578,9 @@ def phase_shards(beds, kernel_mods, stores, paths):
         "its subject's shard")
 
     single = LocalSession(unsharded)
-    for name, texts in class_queries(unsharded, 64).items():
+    for name, texts in class_queries(unsharded, SHARD_BATCH).items():
         outs = []
-        for kg in (manifest, paths[("OJM", ROWS_PAPER)]):
+        for kg in (manifest, paths[("OJM", SHARD_ROWS)]):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 query_cli.main(["--kg", kg, "--device", CARD, texts[0]])
@@ -1496,9 +1593,9 @@ def phase_shards(beds, kernel_mods, stores, paths):
         for t, r in zip(texts, replies):
             w = single.query(t, limit=1000)
             check(not r.get("error") and [tuple(x) for x in r["rows"]] == w.rows
-                  and r["n_total"] == w.n_total, f"sharded {name} batch 64: rows differ")
+                  and r["n_total"] == w.n_total, f"sharded {name} batch {SHARD_BATCH}: rows differ")
         log(f"sharded {name}: launch.query (batch 1) prints the unsharded store's rows; "
-            f"batch 64 through the shard session in {ms:.1f} ms equals them")
+            f"batch {SHARD_BATCH} through the shard session in {ms:.1f} ms equals them")
     return got, manifest
 
 
@@ -1506,8 +1603,9 @@ def phase_server(stores, manifest):
     """A ``KGServer`` over the 1M OJM store with a port client: the six
     classes equal in-process rows, round-trip p50/p99 at batch 1 over warm
     passes, a live insert/delete round trip; then a ``Coordinator`` over
-    the 4 shards in spawned server processes.  Returns the server's K4
-    launches, which must equal its fast-path dispatches."""
+    the 4 shards of ``manifest`` (``SHARD_ROWS``) in spawned server
+    processes, held to the unsharded store of that tier.  Returns the
+    server's K4 launches, which must equal its fast-path dispatches."""
     from repro_torch.api import LocalSession
     from repro_torch.kernels import scan_join as K
     from repro_torch.live import LiveStore
@@ -1522,20 +1620,22 @@ def phase_server(stores, manifest):
     )
 
     store = stores[("OJM", ROWS_PAPER, "cuda")]
-    texts = class_queries(store, 64, seed=3)
     # the in-process replies every round trip is held against, all computed
-    # before the launch count is reset: they run on the same card store and
+    # before the launch count is reset: they run on the same card stores and
     # take the fast path (K4) in this process
-    single = LocalSession(store)
-    want = {t: single.query(t, limit=1000) for qs in texts.values() for t in qs}
+    texts, want = {}, {}
+    for who, st in (("server", store), ("coordinator", stores[("OJM", SHARD_ROWS, "cuda")])):
+        texts[who] = class_queries(st, SERVER_TEXTS, seed=3)
+        single = LocalSession(st)
+        want[who] = {t: single.query(t, limit=1000) for qs in texts[who].values() for t in qs}
     p0 = bench._workload_preds(store)[0]
     pred = store.decode_term(p0)
     obj = store.decode_term(int(bench._anchor_pool(store, p0, 3)[0]))
 
-    def round_trips(c, who):
-        """A checked warm-up pass over each class's 64 texts, then
+    def round_trips(c, who, label):
+        """A checked warm-up pass over each class's texts, then
         ``SERVER_TIMED_PASSES`` timed and checked passes."""
-        for name, qs in texts.items():
+        for name, qs in texts[who].items():
             lat = []
             for k in range(1 + SERVER_TIMED_PASSES):
                 for t in qs:
@@ -1543,10 +1643,10 @@ def phase_server(stores, manifest):
                     r = c.query(t)
                     if k:
                         lat.append((time.perf_counter() - t0) * 1e3)
-                    w = want[t]
+                    w = want[who][t]
                     check([tuple(x) for x in r["rows"]] == w.rows and r["n_total"] == w.n_total,
-                          f"{who} {name}: the reply differs from the in-process rows")
-            log(f"{who} {name} batch 1: {len(qs)} queries answered with the in-process rows; "
+                          f"{label} {name}: the reply differs from the in-process rows")
+            log(f"{label} {name} batch 1: {len(qs)} queries answered with the in-process rows; "
                 f"p50 {pct(lat, 50):.3f} ms, p99 {pct(lat, 99):.3f} ms over {len(lat)} round "
                 "trips after a warm-up pass")
 
@@ -1558,8 +1658,8 @@ def phase_server(stores, manifest):
     srv = KGServer(LiveStore(store), port=0, log=False).start()  # the process registry
     try:
         with connect(srv.host, srv.port, timeout=120.0) as c:
-            round_trips(c, "server 1M OJM")
-            q = texts["single"][0]
+            round_trips(c, "server", "server 1M OJM")
+            q = texts["server"]["single"][0]
             check(q == f"?s {pred} {obj}", f"server: unexpected single query {q}")
             anchor_row = [tuple(x) for x in c.query(q)["rows"]]
             new = ("<http://example.org/live/server>", pred, obj)
@@ -1589,7 +1689,7 @@ def phase_server(stores, manifest):
         f"{time.perf_counter() - t0:.2f} s")
     try:
         with connect(coord.host, coord.port, timeout=120.0) as c:
-            round_trips(c, "coordinator")
+            round_trips(c, "coordinator", f"coordinator over the {SHARD_ROWS // 1000}K shards")
         shard_fast = []
         for addr in addresses:
             host, port = addr.rsplit(":", 1)
@@ -1849,6 +1949,7 @@ def phase_runner(kernel_mods):
 TRAIN_WARM, TRAIN_TIMED = 2, 8  # full-width steps a mode: warm-up, timed
 TRAIN_CUT_VOCAB, TRAIN_CUT_BATCH = 1 << 16, 4096  # the cut checks' size
 TRAIN_ACCUM = 4
+TRAIN_LR = 1e-3  # recsys_train_step's AdamW
 # The cut checks' tolerances (measured by ``python -m
 # repro_torch.bench.train_precision``: fp32 against fp64 at this cut size).
 # A step's loss is a forward in fp32 (rtol 1e-5).  Its gradient is not that
@@ -1862,6 +1963,67 @@ TRAIN_ACCUM = 4
 # 1.1% for the embedding table).
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_UPDATE_RTOL = 1e-5, 1e-3, 0.05
 DEDUP_RTOL = 1e-4  # loss a step, plain against dedup on the card
+
+
+def update_err(pa, pb, p0, lr: float) -> float:
+    """Largest over leaves of |pa - pb| over |pb - p0| in the 2-norm (the
+    update's own size); a leaf whose update ``pb - p0`` is under 1e-3 of a
+    full step (lr * sqrt(size)), a gradient zero up to rounding that AdamW
+    scales toward lr, counts |pa - p0| against a full step instead."""
+    worst = 0.0
+    for k, w0 in p0.items():
+        a, b = pa[k].detach().cpu().float(), pb[k].detach().cpu().float()
+        full = lr * w0.numel() ** 0.5
+        moved = float((b - w0).norm())
+        worst = max(worst, float((a - b).norm()) / moved if moved >= 1e-3 * full
+                    else float((a - w0).norm()) / full)
+    return worst
+
+
+def event_adamw(marks: list, **kw):
+    """The cells' AdamW (``kw``), with CUDA events recorded around each
+    update into ``marks``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.train.optimizer import AdamW
+
+    @dataclasses.dataclass(frozen=True)
+    class EventAdamW(AdamW):
+        def update(self, grads, state, params):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = super().update(grads, state, params)
+            b.record()
+            marks.append((a, b))
+            return out
+
+    return EventAdamW(**kw)
+
+
+def run_steps(step, params, state, batches, marks: list) -> dict:
+    """One step a batch, CUDA events around each step and (``marks``, from
+    ``event_adamw``) each AdamW update; -> the params, state, losses, grad
+    norms, and the step, forward+backward and AdamW ms of every step."""
+    import torch
+
+    marks.clear()
+    spans, metrics = [], []
+    for b in batches:
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        params, state, m = step(params, state, *b)
+        e.record()
+        spans.append((s, e))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return dict(params=params, state=state,
+                losses=[float(m["loss"]) for m in metrics],
+                norms=[float(m["grad_norm"]) for m in metrics],
+                step_ms=[s.elapsed_time(e) for s, e in spans],
+                fb_ms=[s.elapsed_time(a) for (s, _), (a, _) in zip(spans, marks)],
+                adam_ms=[a.elapsed_time(b) for a, b in marks])
 
 
 def phase_training(kernel_mods):
@@ -1888,20 +2050,6 @@ def phase_training(kernel_mods):
     from repro_torch.models.recsys import WideDeep
     from repro_torch.train import checkpoint, fault
     from repro_torch.train.optimizer import AdamW
-
-    marks = []
-
-    @dataclasses.dataclass(frozen=True)
-    class EventAdamW(AdamW):
-        """The cell's AdamW, with CUDA events recorded around each update."""
-
-        def update(self, grads, state, params):
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            out = super().update(grads, state, params)
-            b.record()
-            marks.append((a, b))
-            return out
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1937,30 +2085,17 @@ def phase_training(kernel_mods):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = WideDeep(c, device=CARD, seed=0)
-        step, opt, params = cells.recsys_train_step(c, model, EventAdamW(lr=1e-3))
+        marks = []
+        step, opt, params = cells.recsys_train_step(c, model, event_adamw(marks, lr=1e-3))
         check(dataclasses.asdict(opt) == dataclasses.asdict(AdamW(lr=1e-3)),
               "the timed optimizer is not the cell's AdamW(lr=1e-3)")
-        state = opt.init(params)
-        marks.clear()
-        spans, metrics = [], []
-        for b in batches:
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            params, state, m = step(params, state, *b)
-            e.record()
-            spans.append((s, e))
-            metrics.append(m)
-        torch.cuda.synchronize()
+        r = run_steps(step, params, opt.init(params), batches, marks)
         peak = torch.cuda.max_memory_allocated()
-        step_ms = [s.elapsed_time(e) for s, e in spans]
-        adam_ms = [a.elapsed_time(b) for a, b in marks]
-        fwd_bwd_ms = [s.elapsed_time(a) for (s, _), (a, _) in zip(spans, marks)]
-        losses = [float(m["loss"]) for m in metrics]
-        norms = [float(m["grad_norm"]) for m in metrics]
         n_params = sum(p.numel() for p in params.values())
-        del model, step, params, state, metrics
+        del model, step, params, r["params"], r["state"]
         torch.cuda.empty_cache()
-        return losses, norms, step_ms, fwd_bwd_ms, adam_ms, peak, n_params
+        return (r["losses"], r["norms"], r["step_ms"], r["fb_ms"], r["adam_ms"], peak,
+                n_params)
 
     reset(kernel_mods)
     runs = {"plain": train(cfg), "dedup": train(dataclasses.replace(cfg, dedup_cap=cap))}
@@ -2002,11 +2137,6 @@ def phase_training(kernel_mods):
 
     p0 = {k: v.detach().cpu().clone() for k, v in fresh()[2].items()}
 
-    def update_err(pa, pb):
-        """Largest over leaves of |pa - pb| over |pb - p0|, in the 2-norm."""
-        return max(float((pa[k].detach().cpu() - pb[k].detach().cpu()).norm()
-                         / (pb[k].detach().cpu() - p0[k]).norm()) for k in p0)
-
     t0 = time.perf_counter()
     res = {}
     for dev in (CARD, "cpu"):
@@ -2020,7 +2150,7 @@ def phase_training(kernel_mods):
     (mc, pc), (mh, ph) = res[CARD], res["cpu"]
     l_err, g_err = (float(np.max(np.abs(mc[:, i] - mh[:, i]) / np.abs(mh[:, i])))
                     for i in (0, 1))
-    p_err = update_err(pc, ph)
+    p_err = update_err(pc, ph, p0, TRAIN_LR)
     check(l_err <= TRAIN_LOSS_RTOL and g_err <= TRAIN_GNORM_RTOL and p_err <= TRAIN_UPDATE_RTOL,
           f"training: the card's first two steps differ from the CPU's (loss {l_err:.3g}, "
           f"grad_norm {g_err:.3g} relative; params {p_err:.3g} of the update)")
@@ -2040,14 +2170,14 @@ def phase_training(kernel_mods):
     p4, _, m4 = step4(p4, opt.init(p4), *micro)
     a_err = abs(float(m4["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
     ag_err = abs(float(m4["grad_norm"]) - float(m1["grad_norm"])) / float(m1["grad_norm"])
-    ap_err = update_err(p4, p1)
+    ap_err = update_err(p4, p1, p0, TRAIN_LR)
     check(a_err <= TRAIN_LOSS_RTOL and ag_err <= TRAIN_GNORM_RTOL
           and ap_err <= TRAIN_UPDATE_RTOL,
           f"training: grad_accum {TRAIN_ACCUM} differs from 1 (loss {a_err:.3g}, grad_norm "
           f"{ag_err:.3g} relative, params {ap_err:.3g} of the update)")
     stepc, opt, pcmp = fresh(compress=True)
     pcmp, _, mcmp, efb = stepc(pcmp, opt.init(pcmp), sp, de, y)
-    c_err = update_err(pcmp, p1)
+    c_err = update_err(pcmp, p1, p0, TRAIN_LR)
     check(bool(torch.isfinite(mcmp["loss"])) and c_err > 0
           and all(bool(torch.isfinite(e).all()) for e in efb.values()),
           "training: the compress=True step gave a non-finite loss or error, or the plain "
@@ -2092,7 +2222,7 @@ def phase_training(kernel_mods):
     _, live["state"], _ = fault.RetryPolicy(max_retries=2, backoff_s=0.0).run(
         flaky, on_failure=on_failure)
     params, live["state"], _ = step(params, live["state"], *cuts[3])
-    r_err = update_err(params, ref)
+    r_err = update_err(params, ref, p0, TRAIN_LR)
     check(live["failed"] == 1 and int(live["state"].step) == 4 and r_err <= TRAIN_UPDATE_RTOL,
           f"training: the restored run's params differ from the uninterrupted run's by "
           f"{r_err:.3g} of the update (step {int(live['state'].step)})")
@@ -2354,12 +2484,13 @@ def lm_parity(arch: str, layers: int) -> dict:
 
     from repro_torch.configs import registry
     from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import nest
 
     cfg = dataclasses.replace(registry.get_arch(arch).config(), n_layers=layers,
                               dtype=torch.float32, attn_chunk=LM_PARITY_CHUNK)
     model = transformer.Transformer(cfg, device=CARD, seed=1)
     on = {CARD: model.params(),
-          "cpu": transformer.nest({k: v.detach().cpu() for k, v in model.named_parameters()})}
+          "cpu": nest({k: v.detach().cpu() for k, v in model.named_parameters()})}
     rng = np.random.default_rng(4)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, LM_PARITY_SEQ)))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab, size=(LM_PARITY_BATCH, LM_PARITY_STEPS)))
@@ -2600,6 +2731,497 @@ def phase_lm(kernel_mods):
     log(f"launches of K1-K4 in the LM phase: {launches}")
 
 
+# ------------------------------------------------------------------ slice 10
+
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (TF32 is off here)
+LM_TRAIN_BATCH = 3  # train_4k's batch, cut from 256: the most sequences that fit with remat
+LM_TRAIN_WARM, LM_TRAIN_TIMED = 1, 4
+LM_TRAIN_IDS = 4096  # tokens drawn from the first 4,096 ids: a unigram the step can learn
+REMAT_DEPTHS = (2, 4)  # remat off against on at these depths, batch 1, seq 4,096
+LM_TRAIN_PARITY = dict(layers=2, batch=1, seq=64, steps=2)  # fp32, full width
+GNN_WARM, GNN_TIMED = 1, 3
+GNN_TIMED_SMALL = 11  # the small cells' timed steps: 12 losses, held to JAX's
+# (arch, shape) -> the factor both n and e are cut by (the average degree kept):
+# the card holds the uncut graph nowhere else (PERF.md section 4 has the reckoning)
+GNN_CUTS = {("meshgraphnet", "ogb_products"): 9, ("nequip", "ogb_products"): 8,
+            ("equiformer-v2", "ogb_products"): 114, ("equiformer-v2", "minibatch_lg"): 3}
+GNN_SMALL = ("full_graph_sm", "molecule")  # the cells held to JAX's losses
+# JAX's losses over 12 train steps at each small cell's published config,
+# from the port's seed-0 weights drawn on the CPU (the cells' own), on the
+# seed-0 batch: ``python tests/test_torch_gnn.py ARCH SHAPE 12 --jax-only``
+# prints them.  At lr 1e-3 JAX's loss blows up on three cells: MGN's and
+# Equiformer's ``molecule`` at step 1, Equiformer's ``full_graph_sm`` at
+# step 8.  From a blow-up on, the two runs' rounding differences grow with
+# it (three steps after it the card's Equiformer ``full_graph_sm`` loss was
+# 20% from JAX's, the port's on the CPU 13%), so the card's losses are held
+# to JAX's within ``GNN_TRAJ_RTOL`` through the first step at which JAX's
+# more than doubles, and within a factor ``GNN_TRAJ_AFTER`` after it.
+GNN_JAX_LOSSES = {
+    ("gat-cora", "full_graph_sm"): [
+        1.9509204626083374, 1.9227441549301147, 1.8955588340759277, 1.869134545326233,
+        1.8433507680892944, 1.8181401491165161, 1.7934634685516357, 1.769277572631836,
+        1.7455443143844604, 1.7222180366516113, 1.6992645263671875, 1.6766437292099],
+    ("meshgraphnet", "full_graph_sm"): [
+        2.3286147117614746, 3.6298084259033203, 3.210195779800415, 3.130181074142456,
+        2.57145094871521, 2.319948196411133, 1.9747837781906128, 1.9072424173355103,
+        1.8937968015670776, 1.8433680534362793, 1.7471431493759155, 1.691326379776001],
+    ("nequip", "full_graph_sm"): [
+        1.9459035396575928, 1.945787787437439, 1.9456424713134766, 1.94546377658844,
+        1.9452425241470337, 1.9449764490127563, 1.9446535110473633, 1.944257140159607,
+        1.9437776803970337, 1.943207025527954, 1.9425315856933594, 1.9417349100112915],
+    ("gat-cora", "molecule"): [
+        3.9792447090148926, 3.627094030380249, 3.305337429046631, 3.013028144836426,
+        2.749272346496582, 2.513209819793701, 2.30413556098938, 2.1212024688720703,
+        1.9634721279144287, 1.8298218250274658, 1.7187837362289429, 1.6283862590789795],
+    ("meshgraphnet", "molecule"): [
+        39.51372528076172, 27269.10546875, 1925.3211669921875, 2690.3701171875,
+        2.7261288166046143, 516.2185668945312, 31.978775024414062, 1106.783447265625,
+        1282.251953125, 281.1732177734375, 193.51620483398438, 451.01617431640625],
+    ("equiformer-v2", "full_graph_sm"): [
+        1.951783537864685, 1.875474214553833, 1.8005472421646118, 1.7187784910202026,
+        1.622243046760559, 1.4963304996490479, 1.3169223070144653, 1.066142201423645,
+        7.323652744293213, 11151.771484375, 5751.35205078125, 95544.2890625],
+    ("equiformer-v2", "molecule"): [
+        2.6650915145874023, 144.502685546875, 78.6136703491211, 13.45999813079834,
+        5.411147117614746, 7.718297481536865, 1.4694896936416626, 6.289836883544922,
+        9.083793640136719, 4.714104175567627, 0.9811428785324097, 3.7242109775543213],
+    ("nequip", "molecule"): [
+        1.0967168807983398, 1.0988013744354248, 1.0976345539093018, 1.095823884010315,
+        1.0957611799240112, 1.0959314107894897, 1.0954951047897339, 1.0948041677474976,
+        1.094363808631897, 1.0941343307495117, 1.0935760736465454, 1.092698335647583],
+}
+GNN_TRAJ_RTOL = 2e-2  # the card's loss a step against JAX's, to its blow-up
+GNN_TRAJ_AFTER = 2.0  # the card's loss over JAX's, or JAX's over it, after the blow-up
+
+
+def held_steps(want) -> int:
+    """The steps of a small cell's losses held to JAX's ``want`` within
+    ``GNN_TRAJ_RTOL``: through the first at which JAX's loss more than
+    doubles, else all."""
+    return next((i + 1 for i in range(1, len(want)) if want[i] > 2 * want[i - 1]), len(want))
+
+
+GNN_PARITY = dict(n=500, e=2000, d_in=12, n_classes=5, n_graphs=4)
+GNN_PARITY_RTOL = 1e-5  # forward, card against CPU, of its largest magnitude
+# reddit as minibatch_lg's comment has it: 232,965 nodes, 114.6M edges
+SAMPLER = dict(n_nodes=232_965, avg_degree=492, fanouts=(15, 10), seeds=1024)
+
+
+def adamw_bytes(params) -> int:
+    """The bytes one AdamW update must move: each parameter's gradient and
+    value read and its value written (their dtype), its fp32 ``m`` and ``v``
+    read and written."""
+    return sum(p.numel() * (3 * p.element_size() + 16) for p in params.values())
+
+
+def lm_train_once(cfg, batch: int, seq: int, steps: int, rng_seed: int = 0):
+    """``steps`` ``lm_train_step`` steps of a fresh seed-0 ``cfg`` model on
+    the card at ``batch`` x ``seq`` (ids below ``LM_TRAIN_IDS``, labels the
+    next id); -> ``run_steps``' dict with the peak bytes and the parameter
+    count.  Everything is freed before it returns."""
+    import torch
+
+    from repro_torch.configs import cells
+    from repro_torch.models import transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=CARD).manual_seed(rng_seed)
+    model = transformer.Transformer(cfg, device=CARD, seed=0)
+    marks = []
+    step, opt, params = cells.lm_train_step(cfg, model, event_adamw(
+        marks, lr=1e-4, weight_decay=0.1))
+    state = opt.init(params)
+    batches = []
+    for _ in range(steps):
+        ids = torch.randint(0, LM_TRAIN_IDS, (batch, seq + 1), generator=gen, device=CARD,
+                            dtype=torch.int32)
+        batches.append((ids[:, :-1].contiguous(), ids[:, 1:].contiguous()))
+    out = run_steps(step, params, state, batches, marks)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["n_params"] = sum(p.numel() for p in params.values())
+    out["adam_bytes"] = adamw_bytes(params)
+    del model, step, params, state, out["params"], out["state"], batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_cpu_steps(cfg, model, data, out: dict) -> None:
+    """``lm_train_step`` steps of ``model`` on the CPU, one a token array of
+    ``data`` (inputs and next-id labels): ``out["cpu"]`` gets [[loss,
+    grad_norm]] and the params, or ``out["error"]`` the exception (run in a
+    thread beside the card's work)."""
+    import numpy as np
+
+    from repro_torch.configs import cells
+
+    try:
+        t0 = time.perf_counter()
+        step, opt, params = cells.lm_train_step(cfg, model)
+        state = opt.init(params)
+        ms, out["step_s"] = [], [time.perf_counter() - t0]
+        for ids in data:
+            params, state, met = step(params, state, ids[:, :-1], ids[:, 1:])
+            ms.append([float(met["loss"]), float(met["grad_norm"])])
+            out["step_s"].append(time.perf_counter() - t0 - sum(out["step_s"]))
+        out["cpu"] = (np.array(ms), {k: v.detach() for k, v in params.items()})
+    except BaseException as e:  # re-raised by the phase after the join
+        out["error"] = e
+
+
+def phase_lm_train(kernel_mods, batch: int = LM_TRAIN_BATCH):
+    """qwen2.5-3b trains at its published widths, all 36 layers, bf16, with
+    per-layer remat, through ``configs.cells.lm_train_step`` (the JAX cell's
+    AdamW(lr=1e-4, weight_decay=0.1)) at ``batch`` x 4,096 (``train_4k``,
+    the batch cut from 256): 1 warm-up and 4 timed steps, step,
+    forward+backward and AdamW ms by CUDA events, the peak memory and the
+    loss (finite, falling), each beside its bound.  Remat off against on at
+    2 and 4 layers, batch 1, seq 4,096: their peaks, and what that gives
+    for 36 layers.  In fp32 at 2 layers, full width, 2 steps on the card
+    against a CPU copy of the same weights (loss, grad_norm, each leaf's
+    update); the CPU's steps run in a thread while the card trains.  No
+    K1-K4 launch (their counts set to 0 before and read after)."""
+    import copy
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import cells, registry
+    from repro_torch.configs.registry import LM_TRAIN
+    from repro_torch.models import transformer
+
+    reset(kernel_mods)
+    seq = LM_TRAIN["seq"]
+    cfg = registry.get_arch("qwen2.5-3b").config()
+
+    # ---- the fp32 CPU reference starts first, in a thread (the card's copy
+    # of the same weights trains after the full-width runs)
+    t_ref = time.perf_counter()
+    P = LM_TRAIN_PARITY
+    pc = dataclasses.replace(cfg, n_layers=P["layers"], dtype=torch.float32)
+    model = transformer.Transformer(pc, device=CARD, seed=1)
+    p0 = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    host = copy.deepcopy(model).to("cpu")
+    del model
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(2)
+    data = [torch.randint(0, pc.vocab, (P["batch"], P["seq"] + 1), generator=gen,
+                          dtype=torch.int32) for _ in range(P["steps"])]
+    res = {}
+    ref = threading.Thread(target=lm_cpu_steps, args=(pc, host, data, res), daemon=True)
+    ref.start()
+
+    t0 = time.perf_counter()
+    r = lm_train_once(cfg, batch, seq, LM_TRAIN_WARM + LM_TRAIN_TIMED)
+    timed = slice(LM_TRAIN_WARM, None)
+    losses = r["losses"]
+    check(all(np.isfinite(losses)) and all(np.isfinite(r["norms"])),
+          f"qwen training: a loss or grad_norm is not finite: {losses} {r['norms']}")
+    check(losses[-1] < losses[0], f"qwen training: the loss did not fall: {losses}")
+    tokens = batch * seq
+    ops = 6 * r["n_params"] * tokens * 4 / 3
+    fb_bound = ops / BF16_FLOPS_PER_S * 1e3
+    adam_bound = r["adam_bytes"] / HBM_BYTES_PER_S * 1e3
+    fb, adam, st = (pct(r[k][timed], 50) for k in ("fb_ms", "adam_ms", "step_ms"))
+    log(f"qwen2.5-3b train_4k at full width ({r['n_params']} parameters, {cfg.n_layers} "
+        f"layers, bf16, remat on), batch {batch} (cut from {LM_TRAIN['batch']}) x {seq}: step "
+        f"p50 {st:.3f} ms (bound {fb_bound + adam_bound:.3f}), forward+backward p50 "
+        f"{fb:.3f} ms (bound {fb_bound:.3f} ms by operations: 6 N tokens x 4/3 = "
+        f"{ops / 1e12:.1f} TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; "
+        f"{fb_bound / fb:.3f} of it), AdamW p50 {adam:.3f} ms (bound {adam_bound:.3f} ms by "
+        f"bytes: {r['adam_bytes'] / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"{adam_bound / adam:.3f} of it); {tokens / st * 1e3:.1f} tokens/s (CUDA events, "
+        f"{LM_TRAIN_TIMED} steps after {LM_TRAIN_WARM} warm-up; first step "
+        f"{r['step_ms'][0]:.3f} ms); peak {r['peak'] / 1e9:.3f} GB (max_memory_allocated) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"  losses {[round(x, 5) for x in losses]}; grad norms "
+        f"{[round(x, 5) for x in r['norms']]}")
+
+    # ---- what remat buys: off against on, batch 1, at two depths
+    t0 = time.perf_counter()
+    peaks = {}
+    for depth in REMAT_DEPTHS:
+        for remat in (True, False):
+            c = dataclasses.replace(cfg, n_layers=depth, remat=remat)
+            q = lm_train_once(c, 1, seq, 1)
+            check(np.isfinite(q["losses"][0]), f"remat {remat} at {depth} layers: loss "
+                  f"{q['losses'][0]}")
+            peaks[(depth, remat)] = q["peak"] / 1e9
+    d0, d1 = REMAT_DEPTHS
+    layer_gb = (cfg.param_count() - dataclasses.replace(cfg, n_layers=0).param_count()) \
+        / cfg.n_layers * 12 / 1e9  # bf16 weight and gradient, fp32 m and v
+    per = {rm: (peaks[(d1, rm)] - peaks[(d0, rm)]) / (d1 - d0) for rm in (True, False)}
+    full = {rm: peaks[(d1, rm)] + (cfg.n_layers - d1) * per[rm] for rm in (True, False)}
+    log(f"remat on against off at batch 1 x {seq} (one step each, peak GB): "
+        + ", ".join(f"{d} layers {peaks[(d, True)]:.3f} on / {peaks[(d, False)]:.3f} off"
+                    for d in REMAT_DEPTHS)
+        + f"; a layer adds {per[True]:.3f} GB on, {per[False]:.3f} GB off (its weights, "
+        f"gradients and moments, {layer_gb:.3f} GB, included); at {cfg.n_layers} layers, "
+        f"batch 1: {full[True]:.1f} GB on, {full[False]:.1f} GB off (the card has "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- fp32 at cut depth, full width: the card against the CPU thread
+    t0 = time.perf_counter()
+    model = transformer.Transformer(pc, device=CARD, seed=1)
+    model.load_state_dict(p0)
+    step, opt, params = cells.lm_train_step(pc, model)
+    state = opt.init(params)
+    ms = []
+    for ids in data:
+        ids = ids.to(CARD)
+        params, state, met = step(params, state, ids[:, :-1], ids[:, 1:])
+        ms.append([float(met["loss"]), float(met["grad_norm"])])
+    mc, pcard = np.array(ms), {k: v.detach().cpu() for k, v in params.items()}
+    del model, step, params, state
+    torch.cuda.empty_cache()
+    card_s = time.perf_counter() - t0
+    ref.join()
+    if "error" in res:
+        raise res["error"]
+    mh, phost = res["cpu"]
+    l_err, g_err = (float(np.max(np.abs(mc[:, i] - mh[:, i]) / np.abs(mh[:, i])))
+                    for i in (0, 1))
+    p_err = update_err(pcard, phost, p0, 1e-4)
+    check(l_err <= TRAIN_LOSS_RTOL and g_err <= TRAIN_GNORM_RTOL and p_err <= TRAIN_UPDATE_RTOL,
+          f"qwen fp32 training: the card's steps differ from the CPU's (loss {l_err:.3g}, "
+          f"grad_norm {g_err:.3g} relative; params {p_err:.3g} of the update)")
+    log(f"qwen2.5-3b at full width, {P['layers']} layers, fp32: {P['steps']} steps at "
+        f"{P['batch']} x {P['seq']} on the card against a CPU copy: loss within {l_err:.3g} "
+        f"(rtol {TRAIN_LOSS_RTOL}), grad_norm within {g_err:.3g} (rtol {TRAIN_GNORM_RTOL}), "
+        f"params within {p_err:.3g} of each leaf's update (rtol {TRAIN_UPDATE_RTOL}); losses "
+        f"{[round(float(x), 6) for x in mc[:, 0]]} (card {card_s:.1f} s; the CPU's thread "
+        f"{time.perf_counter() - t_ref:.1f} s from its start, beside the card's runs: setup and "
+        f"steps {[round(x, 1) for x in res['step_s']]} s)")
+    del res, pcard, phost, host
+    launches = counts(kernel_mods)
+    check(not any(launches.values()), f"the LM training phase launched K1-K4: {launches}")
+    log(f"launches of K1-K4 in the LM training phase: {launches}")
+
+
+def gnn_cells():
+    """Every (arch, shape) GNN cell with its config and the graph it trains
+    on: (arch, shape, cfg, n, e, cut)."""
+    from repro_torch.configs import registry
+
+    out = []
+    for shape, p in registry.GNN_SHAPES.items():
+        for arch, entry in registry.ARCHS.items():
+            if entry.family != "gnn":
+                continue
+            cut = GNN_CUTS.get((arch, shape), 1)
+            out.append((arch, shape, registry.gnn_cell_config(arch, shape),
+                        -(-p["n"] // cut), -(-p["e"] // cut), cut))
+    return out
+
+
+def gnn_bound(flops: float, nbytes: int, dtype) -> tuple:
+    """(ms, "bytes" | "operations"): the step's counted matrix-product
+    operations at the dtype's peak, or its bytes at the memory rate."""
+    import torch
+
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gnn_train_cell(arch, shape, cfg, n, e, data_cache: dict) -> dict:
+    """One GNN cell on the card: a fresh seed-0 model, ``GNN_WARM`` +
+    ``GNN_TIMED`` steps (``GNN_TIMED_SMALL`` on the small cells) on one
+    ``random_graph`` batch (the warm-up under
+    ``FlopCounterMode``, which counts the matrix products of a step, the
+    recomputation included); -> run_steps' dict with peak, flops, bytes."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import cells, registry
+    from repro_torch.data import graphs
+    from repro_torch.models.gnn import common
+
+    p = registry.GNN_SHAPES[shape]
+    key = (shape, n, e)
+    if key not in data_cache:
+        data_cache.clear()
+        t0 = time.perf_counter()
+        b = graphs.random_graph(n, e, p["d_feat"], n_classes=max(p["n_classes"], 1), seed=0,
+                                task=p["task"], n_graphs=p["n_graphs"])
+        data_cache[key] = (common.to_device(b, CARD), time.perf_counter() - t0)
+    batch, gen_s = data_cache[key]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    module = cells.GNN_FAMILIES[arch][0]
+    # drawn on the CPU, as tests/test_torch_gnn.py::cell_trajectories draws
+    # the weights JAX's reference losses start from
+    model = common.Model(module, cfg, device="cpu", seed=0).to(CARD)
+    marks = []
+    step, opt, params = cells.gnn_train_step(arch, cfg, model, event_adamw(marks, lr=1e-3),
+                                             n_graphs=p["n_graphs"])
+    state = opt.init(params)
+    with FlopCounterMode(display=False) as fc:
+        params, state, m0 = step(params, state, batch)
+    n_timed = GNN_TIMED_SMALL if shape in GNN_SMALL else GNN_TIMED
+    out = run_steps(step, params, state, [(batch,)] * n_timed, marks)
+    out["losses"] = [float(m0["loss"])] + out["losses"]
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["flops"] = fc.get_total_flops()
+    out["bytes"] = sum(t.numel() * t.element_size() for t in batch) + adamw_bytes(params)
+    out["n_params"] = sum(v.numel() for v in params.values())
+    out["gen_s"] = gen_s
+    del model, step, params, state, out["params"], out["state"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gnn(kernel_mods):
+    """The four GNNs train at their published widths (GAT 2 x 8 x 8 heads,
+    MGN 15 x 128, NequIP 5 x 32 at l_max 2, Equiformer 12 x 128 at l_max 6,
+    m_max 2, 8 heads; remat on) on every ``GNN_SHAPES`` cell, 16 cells,
+    through ``configs.cells.gnn_train_step`` under ``gnn_cell_config``, on
+    ``random_graph`` batches (``GNN_CUTS`` the graphs cut where the card
+    cannot hold them): step, forward+backward and AdamW ms, peak memory,
+    the loss over 3 steps after 1 warm-up (finite everywhere; 11 on the
+    small cells, each loss within ``GNN_TRAJ_RTOL`` of JAX's from the same
+    weights to JAX's blow-up and within ``GNN_TRAJ_AFTER`` times after it,
+    and falling where JAX's falls), each beside its
+    bound.  At each arch's smoke config, both tasks, in fp32: forward,
+    loss and one step on the card against the CPU.  One
+    ``NeighborSampler`` batch at ``minibatch_lg``'s fanout over a
+    reddit-sized CSR graph, its dedup ratio and host ms, and one GAT step
+    on it.  No K1-K4 launch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import cells, registry
+    from repro_torch.data import graphs
+    from repro_torch.models import layers
+    from repro_torch.models.gnn import common
+
+    reset(kernel_mods)
+    data_cache = {}
+    for arch, shape, cfg, n, e, cut in gnn_cells():
+        t0 = time.perf_counter()
+        r = gnn_train_cell(arch, shape, cfg, n, e, data_cache)
+        losses = r["losses"]
+        check(all(np.isfinite(losses)) and all(np.isfinite(r["norms"])),
+              f"{arch}/{shape}: a loss or grad_norm is not finite: {losses} {r['norms']}")
+        if shape in GNN_SMALL:
+            want = np.array(GNN_JAX_LOSSES[(arch, shape)])
+            h = held_steps(want)
+            check(len(losses) == len(want), f"{arch}/{shape}: {len(losses)} losses")
+            err = float(np.max(np.abs(np.array(losses[:h]) - want[:h]) / np.abs(want[:h])))
+            check(err <= GNN_TRAJ_RTOL,
+                  f"{arch}/{shape}: the first {h} losses differ from JAX's by {err:.3g} (rtol "
+                  f"{GNN_TRAJ_RTOL}): {losses} against {want.tolist()}")
+            ratio = float(np.max(np.abs(np.log(np.array(losses[h:]) / want[h:])), initial=0.0))
+            check(ratio <= np.log(GNN_TRAJ_AFTER),
+                  f"{arch}/{shape}: after step {h} a loss is {np.exp(ratio):.3g}x from JAX's "
+                  f"(at most {GNN_TRAJ_AFTER}x): {losses} against {want.tolist()}")
+            log(f"  {arch}/{shape}: the first {h} of {len(want)} losses within {err:.3g} of "
+                f"JAX's from the same weights (rtol {GNN_TRAJ_RTOL}); after them within "
+                f"{float(np.max(np.abs(np.array(losses) - want) / np.abs(want))):.3g} "
+                f"(a factor {GNN_TRAJ_AFTER} allowed)")
+            check(losses[-1] < losses[0] or want[-1] >= want[0],
+                  f"{arch}/{shape}: the loss did not fall: {losses}")
+        b_ms, b_by = gnn_bound(r["flops"], r["bytes"], cfg.dtype)
+        st, fb, ad = (pct(r[k], 50) for k in ("step_ms", "fb_ms", "adam_ms"))
+        p = registry.GNN_SHAPES[shape]
+        log(f"{arch}/{shape} ({r['n_params']} parameters, {str(cfg.dtype).removeprefix('torch.')}"
+            f"): n {n} e {e}" + (f" (cut {cut}x from {p['n']} / {p['e']})" if cut > 1 else "")
+            + f": step p50 {st:.3f} ms, forward+backward {fb:.3f}, AdamW {ad:.3f} (CUDA events, "
+            f"{len(r['step_ms'])} after {GNN_WARM} warm-up); bound {b_ms:.3f} ms by {b_by} "
+            f"({r['flops'] / 1e12:.3f} TFLOP of matrix products counted, or "
+            f"{r['bytes'] / 1e9:.3f} GB: the graph read once and AdamW's), {b_ms / st:.3f} of "
+            f"the step; peak {r['peak'] / 1e9:.3f} GB; losses {[round(x, 5) for x in losses]} "
+            f"(graph made in {r['gen_s']:.1f} s; cell {time.perf_counter() - t0:.1f} s)")
+    del data_cache
+    torch.cuda.empty_cache()
+
+    # ---- fp32 smoke configs, both tasks: the card against the CPU
+    t0 = time.perf_counter()
+    P = GNN_PARITY
+    worst = {}
+    for arch, (module, _) in cells.GNN_FAMILIES.items():
+        for task in ("node_cls", "graph_reg"):
+            ng = P["n_graphs"] if task == "graph_reg" else 1
+            cfg = dataclasses.replace(registry.get_arch(arch).smoke_config(), d_in=P["d_in"],
+                                      task=task, n_classes=P["n_classes"])
+            b = graphs.random_graph(P["n"], P["e"], P["d_in"], n_classes=P["n_classes"],
+                                    seed=9, task=task, n_graphs=ng)
+            model = common.Model(module, cfg, device=CARD, seed=4)
+            p0 = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+            res = {}
+            for dev in (CARD, "cpu"):
+                m = model if dev == CARD else common.Model(module, cfg, device="cpu")
+                if dev == "cpu":
+                    m.load_state_dict(p0)
+                batch = common.to_device(b, dev)
+                with torch.no_grad():
+                    extra = () if arch == "gat-cora" else (ng,)
+                    fwd = module.forward(m.params(), cfg, batch, *extra).cpu()
+                    loss = float(module.loss_fn(m.params(), cfg, batch, ng))
+                step, opt, params = cells.gnn_train_step(arch, cfg, m, n_graphs=ng)
+                params, _, met = step(params, opt.init(params), batch)
+                res[dev] = (fwd, loss, float(met["loss"]), float(met["grad_norm"]),
+                            {k: v.detach().cpu() for k, v in params.items()})
+            (fc, lc, sc, gc, pc), (fh, lh, sh, gh, ph) = res[CARD], res["cpu"]
+            errs = dict(forward=float((fc - fh).abs().max() / fh.abs().max()),
+                        loss=abs(lc - lh) / abs(lh), step_loss=abs(sc - sh) / abs(sh),
+                        grad_norm=abs(gc - gh) / abs(gh), update=update_err(pc, ph, p0, 1e-3))
+            check(errs["forward"] <= GNN_PARITY_RTOL and errs["loss"] <= TRAIN_LOSS_RTOL
+                  and errs["step_loss"] <= TRAIN_LOSS_RTOL
+                  and errs["grad_norm"] <= TRAIN_GNORM_RTOL
+                  and errs["update"] <= TRAIN_UPDATE_RTOL,
+                  f"{arch} {task} (smoke, fp32): the card differs from the CPU: {errs}")
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+    log(f"GNN smoke configs in fp32, both tasks ({P['n']} nodes, {P['e']} edges), the card "
+        f"against the CPU, largest over the 8: forward {worst['forward']:.3g} of its largest "
+        f"(tolerance {GNN_PARITY_RTOL}), loss {worst['loss']:.3g}, a step's loss "
+        f"{worst['step_loss']:.3g} (rtol {TRAIN_LOSS_RTOL}), grad_norm {worst['grad_norm']:.3g} "
+        f"(rtol {TRAIN_GNORM_RTOL}), params {worst['update']:.3g} of each leaf's update (rtol "
+        f"{TRAIN_UPDATE_RTOL}; the card's index_add is atomic, in no fixed order) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- the neighbor sampler at minibatch_lg's fanout
+    t0 = time.perf_counter()
+    S = SAMPLER
+    g = graphs.CSRGraph.random(S["n_nodes"], S["avg_degree"], seed=0)
+    made = time.perf_counter() - t0
+    sampler = graphs.NeighborSampler(g, S["fanouts"], seed=0)
+    seeds = np.random.default_rng(1).choice(S["n_nodes"], S["seeds"], replace=False)
+    t0 = time.perf_counter()
+    s = sampler.sample(seeds)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    p = registry.GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    b = sampler.batch(seeds, p["d_feat"], n_classes=p["n_classes"])
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    check(b.n_nodes == p["n"] and b.n_edges == p["e"],
+          f"the sampler's batch is {b.n_nodes} x {b.n_edges}, minibatch_lg is {p['n']} x {p['e']}")
+    n_real, e_real = int(s["node_mask"].sum()), int(s["edge_mask"].sum())
+    cfg = registry.gnn_cell_config("gat-cora", "minibatch_lg")
+    model = common.Model(cells.GNN_FAMILIES["gat-cora"][0], cfg, device=CARD)
+    step, opt, params = cells.gnn_train_step("gat-cora", cfg, model)
+    _, _, met = step(params, opt.init(params), common.to_device(b, CARD))
+    check(bool(torch.isfinite(met["loss"])), "GAT on the sampled batch: loss not finite")
+    log(f"NeighborSampler over a reddit-sized CSR graph ({S['n_nodes']} nodes, "
+        f"{int(g.indptr[-1])} edges, made in {made:.1f} s), fanout {S['fanouts']} over "
+        f"{S['seeds']} seeds: {round(s['dedup_ratio'] * n_real)} sampled ids, "
+        f"{n_real} distinct (dedup_ratio {s['dedup_ratio']:.3f}: each distinct node's "
+        f"features gathered once), {e_real} edges; sample {sample_ms:.1f} ms, batch "
+        f"{batch_ms:.1f} ms on the host; padded to minibatch_lg's {p['n']} x {p['e']}; a GAT "
+        f"step on it: loss {float(met['loss']):.5f}")
+    del model, step, params, g, sampler, b
+    torch.cuda.empty_cache()
+    launches = counts(kernel_mods)
+    check(not any(launches.values()), f"the GNN phase launched K1-K4: {launches}")
+    log(f"launches of K1-K4 in the GNN phase: {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2630,10 +3252,10 @@ def main() -> int:
         log(f"phase 5: rdfize on the card (and the small tier on the CPU) "
             f"(+{time.perf_counter() - T0:.1f} s)")
         mods = {"hash_mix": hash_mix, "bucket_dedup": bucket_dedup, "nested_join": nested_join}
-        launches = phase_rdfize(beds, mods)
+        launches, kgz_1m = phase_rdfize(beds, mods)
         log(f"phase 6: rdfize --emit kgz on the card (and the small tier on the CPU) "
             f"(+{time.perf_counter() - T0:.1f} s)")
-        paths, kgz_launches = phase_kgz(beds, mods)
+        paths, kgz_launches = phase_kgz(beds, mods, kgz_1m)
         for name, n in kgz_launches.items():
             launches[name] += n
         stores = open_stores(paths)
@@ -2646,7 +3268,8 @@ def main() -> int:
         log(f"phase 9: the paper's figures on the card (+{time.perf_counter() - T0:.1f} s)")
         for name, n in phase_paper_figs(mods).items():
             launches[name] += n
-        log(f"phase 10: a live store over the 1M OJM store (+{time.perf_counter() - T0:.1f} s)")
+        log(f"phase 10: a live store over the {LIVE_ROWS // 1000}K OJM store "
+            f"(+{time.perf_counter() - T0:.1f} s)")
         phase_live(stores, paths)
         log(f"phase 11: sharded ingest and querying (+{time.perf_counter() - T0:.1f} s)")
         shard_launches, manifest = phase_shards(beds, mods, stores, paths)
@@ -2671,6 +3294,10 @@ def main() -> int:
             launches[name] += n
         log(f"phase 17: the LM family at full width (+{time.perf_counter() - T0:.1f} s)")
         phase_lm(mods)
+        log(f"phase 18: LM training at full width (+{time.perf_counter() - T0:.1f} s)")
+        phase_lm_train(mods)
+        log(f"phase 19: GNN training at full width (+{time.perf_counter() - T0:.1f} s)")
+        phase_gnn(mods)
         log(f"phases done (+{time.perf_counter() - T0:.1f} s)")
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()

@@ -161,6 +161,17 @@ class KGResult:
                 o = _render(d, int(t["obj_pat"][i]), int(t["obj_val"][i]))
                 yield f"{s} <{pred}> {o} ."
 
+    def as_set(self) -> set[tuple]:
+        """Exact triple identity set (for engine-equivalence assertions):
+        (predicate, subject pattern, subject value, object pattern, object
+        value) ids, as JAX's ``KGResult.as_set``."""
+        out = set()
+        for pred, t in self.triples.items():
+            cols = [np.asarray(t[k]).tolist() for k in ("subj_pat", "subj_val", "obj_pat",
+                                                        "obj_val")]
+            out.update((pred, *row) for row in zip(*cols))
+        return out
+
     def write_ntriples(self, path: str) -> int:
         n = 0
         with open(path, "w", encoding="utf-8") as f:

@@ -33,7 +33,7 @@ def main(argv=None) -> dict:
 
     from repro_torch.configs import qwen2_5_3b
     from repro_torch.core.executor import resolve_device
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.trainer import make_train_step
 
@@ -53,7 +53,7 @@ def main(argv=None) -> dict:
     opt = AdamW(lr=3e-3)
     opt_state = opt.init(params)
     step = make_train_step(
-        lambda p, t, l: transformer.loss_fn(cfg, transformer.nest(p), t, l), opt)
+        lambda p, t, l: transformer.loss_fn(cfg, layers.nest(p), t, l), opt)
 
     # fixed random corpus -> loss must fall (memorization signal)
     rng = np.random.default_rng(0)

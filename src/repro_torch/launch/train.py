@@ -51,7 +51,7 @@ def main(argv=None) -> dict:
 
     from repro_torch.configs import registry
     from repro_torch.core.executor import resolve_device
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
     from repro_torch.train import checkpoint, fault
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.trainer import make_train_step
@@ -70,7 +70,7 @@ def main(argv=None) -> dict:
     params = dict(model.named_parameters())
     opt = AdamW(lr=args.lr)
     step_fn = make_train_step(
-        lambda p, t, l: transformer.loss_fn(cfg, transformer.nest(p), t, l),
+        lambda p, t, l: transformer.loss_fn(cfg, layers.nest(p), t, l),
         opt,
         compress=args.compress_grads,
     )

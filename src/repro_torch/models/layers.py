@@ -15,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -110,6 +111,65 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp(min=1)
+
+
+def remat(fn, enabled: bool = True):
+    """``fn`` rematerialized, as ``jax.checkpoint`` with ``nothing_saveable``:
+    where grad is enabled it runs under ``torch.utils.checkpoint`` and keeps
+    only its inputs for the backward pass, which runs it again; under
+    ``torch.no_grad()`` (serving) it is ``fn``.  The recomputation runs the
+    same operations, so the gradients are bit-equal to an unrematerialized
+    run's.  The blocks and layers this wraps draw no random numbers, so the
+    RNG state is neither saved nor restored (``preserve_rng_state=False``).
+    ``fn`` must return a tensor or a tuple of tensors."""
+    if not enabled:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+
+    return run
+
+
+def nest(flat: dict) -> dict:
+    """A flat dict keyed by dotted paths (``named_parameters``) -> the
+    nested params tree."""
+    out: dict = {}
+    for path, t in flat.items():
+        *parents, leaf = path.split(".")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return out
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors (a JAX params tree) as parameters named by
+    its paths (``embed.table``, ``layer0.radial_1_1_2.fc0.w``), so
+    ``convert.state_from_params`` loads JAX's params unchanged; ``params()``
+    gives the nested dict back."""
+
+    def __init__(self, tree: dict | None = None):
+        super().__init__()
+        if tree is not None:
+            self._register(self, tree)
+
+    @staticmethod
+    def _register(module: nn.Module, tree: dict) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                child = nn.Module()
+                module.add_module(k, child)
+                ParamTree._register(child, v)
+            else:
+                module.register_parameter(k, nn.Parameter(v))
+
+    def params(self) -> dict:
+        return nest(dict(self.named_parameters()))
 
 
 class Dense(nn.Module):

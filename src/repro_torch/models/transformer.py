@@ -20,9 +20,9 @@ What waits for the port's mesh work: ``param_specs``, ``cache_specs``,
 no mesh, so single-device results do not change), the int8 expert gathers
 (``moe_quant_gather``) and ``scan_layers=False`` (the dry-run's unrolled
 variant); their config fields are kept, so the configs are JAX's.
-``cfg.remat`` is a memory choice with identical numerics;
-``torch.utils.checkpoint`` does not compose with the ``torch.func``
-gradients the trainer takes, so the port does not rematerialize.
+``cfg.remat`` rematerializes each block where grad is enabled
+(``layers.remat``, JAX's ``jax.checkpoint`` with ``nothing_saveable``):
+only a block's input is kept for the backward pass.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.models import attention, layers, moe, vocab_parallel
 
@@ -158,50 +157,28 @@ def init(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
     return p
 
 
-def nest(flat: dict) -> dict:
-    """A flat dict keyed by dotted paths (``named_parameters``) -> the
-    nested params tree."""
-    out: dict = {}
-    for path, t in flat.items():
-        *parents, leaf = path.split(".")
-        node = out
-        for k in parents:
-            node = node.setdefault(k, {})
-        node[leaf] = t
-    return out
 
-
-def layer(blocks, i: int):
-    """Layer ``i``'s params: views of the stacked leaves."""
+def unstack(blocks, n: int) -> list:
+    """Every layer's params, views of the stacked leaves by one ``unbind``
+    a leaf: its backward stacks the layers' gradients once, where ``n``
+    separate views would each add a zero-padded (L, ...) gradient into the
+    leaf's."""
     if isinstance(blocks, dict):
-        return {k: layer(v, i) for k, v in blocks.items()}
-    return blocks[i]
+        per_key = {k: unstack(v, n) for k, v in blocks.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(blocks.unbind(0))
 
 
-class Transformer(nn.Module):
+class Transformer(layers.ParamTree):
     """An LM's params as parameters named by JAX's paths (``embed.table``,
     ``blocks.attn.q.w``, ...), drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed``.  The model functions of this module
     take ``model.params()``."""
 
     def __init__(self, cfg: LMConfig, device="cuda", seed: int = 0):
-        super().__init__()
-        self.cfg = cfg
         gen = torch.Generator(device=device).manual_seed(seed)
-        _register(self, init(gen, cfg, device))
-
-    def params(self) -> dict:
-        return nest(dict(self.named_parameters()))
-
-
-def _register(module: nn.Module, tree: dict) -> None:
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            child = nn.Module()
-            module.add_module(k, child)
-            _register(child, v)
-        else:
-            module.register_parameter(k, nn.Parameter(v))
+        super().__init__(init(gen, cfg, device))
+        self.cfg = cfg
 
 
 # ----------------------------------------------------------------- forward
@@ -241,8 +218,10 @@ def forward(cfg: LMConfig, params, tokens):
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    for i in range(cfg.n_layers):
-        x, _ = _block_forward(cfg, layer(params["blocks"], i), x, positions)
+    # the block's aux (an MoE's balance loss) is not part of the loss
+    block = layers.remat(lambda p, x: _block_forward(cfg, p, x, positions)[0], cfg.remat)
+    for lp in unstack(params["blocks"], cfg.n_layers):
+        x = block(lp, x)
     return _norm(cfg, params["ln_f"], x)
 
 
@@ -278,8 +257,7 @@ def decode_step(cfg: LMConfig, params, cache: attention.KVCache, tokens, positio
     slice written in place."""
     _check_scanned(cfg)
     x = _embed(cfg, params, tokens)
-    for i in range(cfg.n_layers):
-        lp = layer(params["blocks"], i)
+    for i, lp in enumerate(unstack(params["blocks"], cfg.n_layers)):
         lcache = attention.KVCache(cache.k[i], cache.v[i], cache.pos[i])
         h, _ = attention.decode_step(lp["attn"], cfg.attn, lcache, _norm(cfg, lp["ln1"], x),
                                      position)

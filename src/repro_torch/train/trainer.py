@@ -10,9 +10,13 @@ opt)`` returns
 where ``loss_fn(params, *batch)`` returns a 0-d loss and ``params`` is a
 pytree of tensors (for a module, ``dict(module.named_parameters())`` bound
 with ``torch.func.functional_call``).  Gradients come from
-``torch.func.grad_and_value``, dense as JAX's autodiff gives them; the
-update writes the parameters and moments in place (JAX's donated
-``params``/``opt_state``).  ``metrics`` holds ``loss`` and ``grad_norm`` as
+``torch.autograd.grad`` over detached copies of the leaves, dense as JAX's
+autodiff gives them (zeros for a leaf the loss does not reach); the update
+writes the parameters and moments in place (JAX's donated
+``params``/``opt_state``).  ``torch.autograd`` rather than
+``torch.func.grad`` because the models' remat (``torch.utils.checkpoint``,
+JAX's ``jax.checkpoint``) runs on saved-tensor hooks, which ``torch.func``
+refuses.  ``metrics`` holds ``loss`` and ``grad_norm`` as
 0-d tensors on the device: nothing syncs with the host.
 
 Microbatching: ``grad_accum > 1`` loops over a leading microbatch axis
@@ -40,13 +44,15 @@ def make_train_step(
     compress: bool = False,
     unroll_accum: bool = False,
 ):
-    grad_and_value = torch.func.grad_and_value(loss_fn)
-
     def value_and_grad(params, *batch):
-        # no graph outside: the gradients of parameters that require grad
-        # would otherwise hold their backward pass alive
-        with torch.no_grad():
-            return grad_and_value(params, *batch)
+        # the graph runs from detached leaves: a parameter that requires grad
+        # gets no .grad, and nothing outlives the call
+        xs = [p.detach().requires_grad_() for p in leaves(params)]
+        with torch.enable_grad():
+            loss = loss_fn(unflatten(params, xs), *batch)
+            grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                        materialize_grads=True)
+        return unflatten(params, grads), loss.detach()
 
     def grads_of(params, *batch):
         if grad_accum == 1:

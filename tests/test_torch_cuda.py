@@ -656,7 +656,7 @@ def test_lm_smoke_prefill_and_decode_on_card_match_cpu(dev, arch):
     import dataclasses
 
     from repro_torch.configs import registry
-    from repro_torch.models import transformer
+    from repro_torch.models import layers, transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(registry.get_arch(arch).smoke_config(), attn_chunk=4)
@@ -665,7 +665,7 @@ def test_lm_smoke_prefill_and_decode_on_card_match_cpu(dev, arch):
         np.random.default_rng(6).integers(0, cfg.vocab, size=(2, 12)).astype(np.int32))
     def run(device):
         """-> the prefill's logits, each decode step's and the cache, on the CPU."""
-        params = transformer.nest({k: v.to(device) for k, v in model.state_dict().items()})
+        params = layers.nest({k: v.to(device) for k, v in model.state_dict().items()})
         with torch.inference_mode():
             outs = [transformer.prefill(cfg, params, toks.to(device)).cpu()]
             cache = transformer.make_cache(cfg, 2, 8, device)
@@ -681,3 +681,97 @@ def test_lm_smoke_prefill_and_decode_on_card_match_cpu(dev, arch):
         err = float((got - want).abs().max() / want.abs().max())
         assert err <= 1e-4, err
     assert torch.equal(cpos, hpos)
+
+
+def _update_err(pa, pb, p0, lr):
+    """Largest over leaves of |pa - pb| over |pb - p0| (2-norm); a leaf
+    whose update is under 1e-3 of a full step (lr * sqrt(size)), a gradient
+    zero up to rounding, counts |pa - p0| against a full step instead."""
+    worst = 0.0
+    for k, w0 in p0.items():
+        full = lr * w0.numel() ** 0.5
+        moved = float((pb[k] - w0).norm())
+        worst = max(worst, float((pa[k] - pb[k]).norm()) / moved if moved >= 1e-3 * full
+                    else float((pa[k] - w0).norm()) / full)
+    return worst
+
+
+def _steps_on(step_fn, model, batches):
+    """Steps of ``step_fn(model)``, one a batch (a tuple of the step's
+    arguments); -> [[loss, grad_norm]] and the params on the CPU."""
+    step, opt, params = step_fn(model)
+    state = opt.init(params)
+    ms = []
+    for b in batches:
+        params, state, m = step(params, state, *b)
+        ms.append([float(m["loss"]), float(m["grad_norm"])])
+    return np.array(ms), {k: v.detach().cpu() for k, v in params.items()}
+
+
+@pytest.mark.parametrize("task", ["node_cls", "graph_reg"])
+@pytest.mark.parametrize("arch", ["gat-cora", "meshgraphnet", "nequip", "equiformer-v2"])
+def test_gnn_train_step_on_card_matches_cpu(dev, arch, task):
+    """A GNN smoke config's forward and two ``gnn_train_step`` steps (remat
+    on) on the card against a CPU copy, fp32 without TF32, with
+    ``chip_smoke.py`` phase 19's tolerances: forward within 1e-5 of its
+    largest (the card's index_add is atomic, in no fixed order), loss rtol
+    1e-5, grad_norm 1e-3, each leaf within 5% of its update."""
+    import dataclasses
+
+    from repro_torch.configs import cells, registry
+    from repro_torch.data import graphs
+    from repro_torch.models.gnn import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ng = 4 if task == "graph_reg" else 1
+    cfg = dataclasses.replace(registry.get_arch(arch).smoke_config(), d_in=12, task=task,
+                              n_classes=5)
+    module = cells.GNN_FAMILIES[arch][0]
+    b = graphs.random_graph(300, 1200, 12, n_classes=5, seed=8, task=task, n_graphs=ng)
+    p0 = {k: v.detach().clone()
+          for k, v in common.Model(module, cfg, device="cpu", seed=2).named_parameters()}
+    runs, fwd = {}, {}
+    for device in ("cpu", dev):
+        model = common.Model(module, cfg, device="cpu", seed=2).to(device)
+        batch = common.to_device(b, device)
+        with torch.no_grad():
+            extra = () if arch == "gat-cora" else (ng,)
+            fwd[str(device)] = module.forward(model.params(), cfg, batch, *extra).cpu()
+        runs[str(device)] = _steps_on(
+            lambda m: cells.gnn_train_step(arch, cfg, m, n_graphs=ng), model, [(batch,)] * 2)
+    fc, fh = fwd["cuda"], fwd["cpu"]
+    assert float((fc - fh).abs().max() / fh.abs().max()) <= 1e-5
+    (mc, pc), (mh, ph) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(mc[:, 0], mh[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(mc[:, 1], mh[:, 1], rtol=1e-3)
+    assert _update_err(pc, ph, p0, 1e-3) <= 0.05
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_card_matches_cpu(dev, arch):
+    """Two ``lm_train_step`` steps of an LM smoke config (remat on, 2
+    microbatches, on the chunked path) on the card against a CPU copy, fp32
+    without TF32: loss rtol 1e-5, grad_norm 1e-3, each leaf within 5% of
+    its update (``chip_smoke.py`` phase 18's tolerances)."""
+    import dataclasses
+
+    from repro_torch.configs import cells, registry
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get_arch(arch).smoke_config(), attn_chunk=4,
+                              microbatches=2)
+    rng = np.random.default_rng(7)
+    batches = [tuple(torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 2, 12)).astype(
+        np.int32)) for _ in range(2)) for _ in range(2)]
+    p0 = {k: v.detach().clone()
+          for k, v in transformer.Transformer(cfg, device="cpu", seed=3).named_parameters()}
+    runs = {}
+    for device in ("cpu", dev):
+        model = transformer.Transformer(cfg, device="cpu", seed=3).to(device)
+        runs[str(device)] = _steps_on(lambda m: cells.lm_train_step(cfg, m), model,
+                                      [tuple(x.to(device) for x in b) for b in batches])
+    (mc, pc), (mh, ph) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(mc[:, 0], mh[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(mc[:, 1], mh[:, 1], rtol=1e-3)
+    assert _update_err(pc, ph, p0, 1e-4) <= 0.05

@@ -35,7 +35,7 @@ from repro_torch.configs import registry
 from repro_torch.convert import kv_cache_from_numpy, state_from_params
 from repro_torch.examples import serve_lm, train_lm
 from repro_torch.launch import train as launch_train
-from repro_torch.models import attention, moe, transformer
+from repro_torch.models import attention, layers, moe, transformer
 from repro_torch.models.transformer import Transformer
 from repro_torch.train import checkpoint
 from repro_torch.train.optimizer import AdamW
@@ -370,9 +370,10 @@ def test_registry_lm_entries_equal_jax():
         assert p.train_shape == "train_4k"
     for name in ("LM_TRAIN", "LM_PREFILL", "LM_DECODE", "LM_LONG"):
         assert getattr(registry, name) == getattr(jreg, name)
-    want = [c for c in jreg.list_cells() if c[0] in registry.ARCHS]
-    assert registry.list_cells() == want == [c for c in jreg.list_cells(True)
-                                             if c[0] in registry.ARCHS]
+    archs = [a for a, e in registry.ARCHS.items() if e.family != "gnn"]
+    want = [c for c in jreg.list_cells() if c[0] in archs]
+    assert [c for c in registry.list_cells() if c[0] in archs] == want == [
+        c for c in jreg.list_cells(True) if c[0] in archs]
     assert len(want) == 24 and sum(1 for c in want if c[2]) == 4
 
 
@@ -380,7 +381,7 @@ def test_registry_lm_entries_equal_jax():
 
 
 def _loss(cfg):
-    return lambda p, toks, labels: transformer.loss_fn(cfg, transformer.nest(p), toks, labels)
+    return lambda p, toks, labels: transformer.loss_fn(cfg, layers.nest(p), toks, labels)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -558,3 +559,81 @@ def test_lm_entry_points_need_a_card_without_one():
     for main in (serve_lm.main, train_lm.main, launch_train.main):
         with pytest.raises(RuntimeError, match="cuda"):
             main([])
+
+
+# ----------------------------------------- lm_train_step and per-layer remat
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_train_step_grad_accum_matches_jax(arch):
+    """``lm_train_step`` (the cell's AdamW(lr=1e-4, weight_decay=0.1),
+    ``grad_accum = cfg.microbatches``) with 2 microbatches in JAX's
+    ``(accum, B / accum, S)`` layout against ``lm_train_cell``'s step:
+    loss and grad_norm within rtol 1e-5, params as ``_close_update``."""
+    from repro_torch.configs import cells
+
+    jc, tc = jcfg(arch, microbatches=2), tcfg(arch, microbatches=2)
+    toks = tokens(jc, 4, 16, seed=40).reshape(2, 2, 16)
+    labels = tokens(jc, 4, 16, seed=41).reshape(2, 2, 16)
+    jopt = JAdamW(lr=1e-4, weight_decay=0.1)
+    jstep = jax.jit(jmake_step(lambda p, a, b: jtr.loss_fn(jc, p, a, b), jopt,
+                               grad_accum=jc.microbatches))
+    jp, _, jm = jstep(jparams(arch), jopt.init(jparams(arch)), toks, labels)
+    model = Transformer(tc, device="cpu")
+    model.load_state_dict(state_from_params(jparams(arch), device="cpu"))
+    step, opt, params = cells.lm_train_step(tc, model)
+    assert dataclasses.asdict(opt) == dataclasses.asdict(JAdamW(lr=1e-4, weight_decay=0.1))
+    p0 = {k: v.detach().clone() for k, v in params.items()}
+    params, state, tm = step(params, opt.init(params), t(toks), t(labels))
+    for k in ("loss", "grad_norm"):
+        close(tm[k], jm[k], rtol=1e-5, atol=0, what=k)
+    _close_update(params, jp, p0)
+    assert int(state.step) == 1 and params["embed.table"] is model.embed.table
+
+
+def _lm_grads(arch, remat):
+    cfg = tcfg(arch, remat=remat)
+    model = Transformer(cfg, device="cpu", seed=2)
+    toks, labels = tokens(cfg, 2, 12, seed=42), tokens(cfg, 2, 12, seed=43)
+    xs = {k: p.detach().requires_grad_() for k, p in model.named_parameters()}
+    loss = transformer.loss_fn(cfg, layers.nest(xs), t(toks), t(labels))
+    return loss, torch.autograd.grad(loss, list(xs.values()), allow_unused=True,
+                                     materialize_grads=True)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_remat_on_and_off_bit_equal(arch):
+    """Per-layer remat recomputes each block with the same operations: the
+    loss and every gradient are bit-equal to a run that keeps them."""
+    (l1, g1), (l2, g2) = _lm_grads(arch, True), _lm_grads(arch, False)
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2, strict=True))
+
+
+@pytest.mark.parametrize("remat,grad,runs", [(True, True, 2), (False, True, 1),
+                                             (True, False, 1)])
+def test_lm_remat_recomputes_each_block(monkeypatch, remat, grad, runs):
+    """With ``cfg.remat`` and grad enabled each block runs again in the
+    backward pass; without remat, or under no_grad (serving), once."""
+    calls = []
+    real = transformer._block_forward
+    monkeypatch.setattr(transformer, "_block_forward",
+                        lambda *a: calls.append(1) or real(*a))
+    cfg = tcfg("qwen2.5-3b", remat=remat)
+    model = Transformer(cfg, device="cpu")
+    toks = t(tokens(cfg, 1, 8))
+    if grad:
+        loss = transformer.loss_fn(cfg, model.params(), toks, toks)
+        loss.backward()
+    else:
+        with torch.no_grad():
+            transformer.loss_fn(cfg, model.params(), toks, toks)
+    assert len(calls) == runs * cfg.n_layers
+
+
+def test_lm_train_step_checks_widths():
+    from repro_torch.configs import cells
+
+    model = Transformer(tcfg("qwen2.5-3b"), device="cpu")
+    with pytest.raises(ValueError, match="d_model"):
+        cells.lm_train_step(tcfg("qwen2.5-3b", d_model=32), model)

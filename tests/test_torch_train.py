@@ -439,3 +439,61 @@ def test_entry_points_need_a_card_without_one(tmp_path):
     checkpoint.save(os.path.join(tmp_path, "step_0"), {"w": torch.ones(2)}, step=0)
     with pytest.raises(RuntimeError, match="cuda"):
         checkpoint.restore(os.path.join(tmp_path, "step_0"), {"w": torch.ones(2)})
+
+
+# ----------------------------------------- gradients by torch.autograd.grad
+
+
+def test_step_leaves_no_grad_and_no_graph():
+    """The step differentiates detached copies of the leaves: parameters
+    that require grad get no ``.grad``, the update stays in place, and it
+    runs under an outer ``torch.no_grad()`` too."""
+    w = torch.nn.Parameter(torch.zeros(4))
+    params, x, y = {"w": w, "b": torch.nn.Parameter(torch.zeros(()))}, *_toy()[1:]
+    opt = AdamW(lr=1e-2)
+    step = make_train_step(_quad_loss, opt)
+    with torch.no_grad():
+        params, state, m = step(params, opt.init(params), x, y)
+    assert params["w"] is w and w.grad is None and not m["loss"].requires_grad
+    assert float(w.detach().abs().sum()) > 0
+
+
+def test_leaf_the_loss_does_not_reach_gets_zeros():
+    """As JAX's autodiff: a leaf outside the loss has a zero gradient, and
+    AdamW moves it by weight decay alone."""
+    params, x, y = _toy()
+    params["unused"] = torch.ones(3)
+    opt = AdamW(lr=1e-2, weight_decay=0.5)
+    params, state, _ = make_train_step(_quad_loss, opt)(params, opt.init(params), x, y)
+    assert torch.equal(state.m["unused"], torch.zeros(3))
+    np.testing.assert_allclose(params["unused"].numpy(), 1 - 1e-2 * 0.5, rtol=1e-6)
+
+
+def test_step_gradients_equal_torch_func():
+    """``torch.autograd.grad`` over the detached leaves gives the gradients
+    ``torch.func.grad`` gives, bit for bit, on Wide & Deep's loss."""
+    cfg = wide_deep.smoke_config()
+    model = WideDeep(cfg, device="cpu", seed=1)
+    rng = np.random.default_rng(9)
+    sp = t(rng.integers(0, cfg.vocab_per_field, size=(32, cfg.n_sparse, 1)).astype(np.int32))
+    de = t(rng.normal(size=(32, cfg.n_dense)).astype(np.float32))
+    y = t(rng.integers(0, 2, size=32).astype(np.int32))
+
+    def loss(p):
+        return bce_loss(torch.func.functional_call(model, p, (sp, de)), y)
+
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    want = torch.func.grad(loss)(params)
+    captured = {}
+
+    class Capture(AdamW):
+        def update(self, grads, state, p):
+            captured.update(grads)
+            return super().update(grads, state, p)
+
+    opt = Capture(lr=1e-3)
+    make_train_step(lambda p, *b: loss(p), opt)(dict(model.named_parameters()),
+                                                opt.init(params))
+    assert sorted(captured) == sorted(want)
+    for k in want:
+        assert torch.equal(captured[k], want[k]), k
