@@ -134,7 +134,16 @@ Phases, each of which makes the script exit non-zero when it fails:
      losses held to JAX's from the same weights; the smoke configs in
      fp32 on the card against the CPU; a ``NeighborSampler`` batch at
      ``minibatch_lg``'s fanout, its dedup ratio; no K1-K4 launch;
- 20. print the kernels line (one JSON object, all four kernels), the card
+ 20. the dry-run (``phase_dryrun``): ``launch.dryrun`` on the local
+     one-card mesh for ``wide-deep/train_batch``, ``gat-cora/full_graph_sm``
+     and ``wide-deep/serve_p99`` at full width, each cell also run for real
+     once: the traced flops equal ``FlopCounterMode`` over the real run
+     exactly, the traced peak is within 10% of ``max_memory_allocated``;
+     ``rdfizer/shuffle_dedup`` run for real, 2^24 keys over the single-pod
+     mesh's 256 shards stacked on the card (2^22 slots each), its ``is_new``
+     count equal to a ``torch.unique`` count of the valid keys; qwen2.5-3b
+     ``decode_32k`` traced, which does not fit one card; no K1-K4 launch;
+ 21. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
@@ -362,6 +371,90 @@ def max_abs_err(pairs) -> int:
 
 
 # ----------------------------------------------------------------- phases
+
+
+DRYRUN_CELLS = ("wide-deep/train_batch", "gat-cora/full_graph_sm", "wide-deep/serve_p99")
+DRYRUN_PEAK_RTOL = 0.10  # the traced peak against the card's, of the card's
+
+
+def phase_dryrun(kernel_mods):
+    """Phase 20: ``launch.dryrun`` on the local one-card mesh, held to real
+    runs of the same cells: exact flops, the traced peak within
+    ``DRYRUN_PEAK_RTOL`` of ``max_memory_allocated`` (less what was
+    allocated besides the args: the cuBLAS workspace and earlier phases'
+    leftovers), and the real run's counted bytes and live peak equal to the
+    trace's; the rdfizer cell run for real on the single-pod mesh's 256
+    shards stacked on the card; qwen2.5-3b ``decode_32k`` traced."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.train.tree import leaves
+
+    reset(kernel_mods)
+    mesh = make_local_mesh()
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    for cell in DRYRUN_CELLS:
+        arch, shape = cell.split("/")
+        res = dryrun.run_cell(arch, shape, mesh, "local", device=CARD, hbm_bytes=hbm)
+        check(res["status"] == "ok" and res["fits"], f"{cell}: {res}")
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        spec = registry.build_cell(arch, shape, mesh, device=CARD, fake=False)
+        arg_bytes = torch.cuda.memory_allocated() - before
+        spec.fn(*spec.args)  # warm-up: the cuBLAS workspace, lazy state
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - arg_bytes
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        real = dryrun.measure(spec)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - other
+        traced, flops, out = res["memory"]["peak_bytes"], real["flops"], real["out"]
+        rel = abs(traced - peak) / peak
+        check(flops == res["flops_global"],
+              f"{cell}: traced flops {res['flops_global']:.6e}, the real run's {flops:.6e}")
+        check(real["bytes_accessed"] == res["bytes_accessed_global"]
+              and real["peak_bytes"] == traced,
+              f"{cell}: the real run's counted bytes {real['bytes_accessed']:.6e} and live "
+              f"peak {real['peak_bytes']} against the trace's")
+        check(rel <= DRYRUN_PEAK_RTOL,
+              f"{cell}: traced peak {traced} B, the card's {peak} B ({rel:.3%})")
+        check(all(bool(torch.isfinite(t).all()) for t in leaves(out)
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()),
+              f"{cell}: a non-finite output")
+        log(f"dry-run {cell}: flops {res['flops_global']:.6e} (traced) = {flops:.6e} (run), "
+            f"bytes accessed {res['bytes_accessed_global']:.4e}, peak traced {traced / 1e9:.4f}"
+            f" GB against the card's {peak / 1e9:.4f} GB ({rel:.3%}; args "
+            f"{arg_bytes / 1e9:.4f} GB), trace {res['trace_s']:.3f} s, run {run_ms:.1f} ms "
+            f"(under the counters), fits {res['fits']}")
+        del spec, out
+        torch.cuda.empty_cache()
+
+    pod = make_production_mesh()
+    spec = registry.build_extra_cells(pod, device=CARD, fake=False)[0]
+    res = dryrun.run_extra(spec, pod, "single_pod_16x16")
+    del spec
+    torch.cuda.empty_cache()
+    check(res["n_new"] == res["n_distinct"] and not res["overflow"],
+          f"rdfizer/shuffle_dedup: {res}")
+    log(f"dry-run rdfizer/shuffle_dedup, run on the card: {res['n_keys']} keys over "
+        f"{res['devices']} shards stacked (2^22 slots each), {res['run_s']:.3f} s, peak "
+        f"{res['peak_bytes'] / 1e9:.3f} GB, is_new {res['n_new']} = {res['n_distinct']} "
+        f"distinct valid keys (torch.unique), overflow {res['overflow']}")
+
+    res = dryrun.run_cell("qwen2.5-3b", "decode_32k", mesh, "local", device=CARD,
+                          hbm_bytes=hbm)
+    check(res["status"] == "ok" and not res["fits"],
+          f"qwen2.5-3b/decode_32k: expected not to fit one card at batch 128: {res}")
+    log(f"dry-run qwen2.5-3b/decode_32k (batch 128, 32,768 slots): fits {res['fits']}, peak "
+        f"{res['memory']['peak_bytes'] / 1e9:.3f} GB (args "
+        f"{res['memory']['argument_size_in_bytes'] / 1e9:.3f} GB) against "
+        f"{hbm / 1e9:.3f} GB, flops {res['flops_global']:.4e}, trace {res['trace_s']:.3f} s")
+    launches = counts(kernel_mods)
+    check(not any(launches.values()), f"the dry-run phase launched K1-K4: {launches}")
 
 
 def phase_device():
@@ -3298,6 +3391,8 @@ def main() -> int:
         phase_lm_train(mods)
         log(f"phase 19: GNN training at full width (+{time.perf_counter() - T0:.1f} s)")
         phase_gnn(mods)
+        log(f"phase 20: the dry-run against real runs (+{time.perf_counter() - T0:.1f} s)")
+        phase_dryrun(mods)
         log(f"phases done (+{time.perf_counter() - T0:.1f} s)")
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()

@@ -21,11 +21,13 @@ shapes, on ``--device`` (default ``cuda``; no fallback: without a card pass
                  and compaction
   shard/*      — routed vs scatter-all query cost at 1/2/4 shards vs the
                  unsharded baseline
+  roofline/*   — (when results/torch/dryrun.json exists) each dry-run cell's
+                 bound at the H100's peaks (``bench.roofline``)
 
 The ``stream``, ``kg``, ``serve``, ``live`` and ``shard`` sections write
 ``BENCH_*.json`` reports with the JAX package's keys into ``--json-dir``
 (default ``bench-out/torch``), never into the repository's root, where the
-JAX package's reports live.  The ``roofline`` section is not ported.
+JAX package's reports live.
 
 ``--full`` widens fig56 to the paper's 1M-row tier, as in JAX.  It also
 widens ``live`` and ``shard`` from 20K rows to the paper's 1M SOM tier: on
@@ -409,7 +411,23 @@ def bench_shard(json_dir: str, device, full: bool = False) -> None:
     _write_json(json_dir, "BENCH_shard.json", report)
 
 
-SECTIONS = ("fig56", "opmodel", "kernels", "dedup", "stream", "kg", "serve", "live", "shard")
+def bench_roofline() -> None:
+    from repro_torch.bench import roofline
+
+    path = os.path.join(roofline.RESULTS, "dryrun.json")
+    if not os.path.exists(path):
+        print("# roofline: results/torch/dryrun.json missing (run repro_torch.launch.dryrun)",
+              flush=True)
+        return
+    for r in roofline.derive(path):
+        if r.get("status") != "ok":
+            continue
+        _row(f"roofline/{r['cell']}", r["t_bound_s"] * 1e6,
+             f"bound={r['bound']};frac={r.get('roofline_frac', 0) * 100:.1f}%")
+
+
+SECTIONS = ("fig56", "opmodel", "kernels", "dedup", "stream", "kg", "serve", "live", "shard",
+            "roofline")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -442,6 +460,7 @@ def main(argv=None) -> None:
         "serve": lambda: bench_serve(jd, dev),
         "live": lambda: bench_live(jd, dev, args.full),
         "shard": lambda: bench_shard(jd, dev, args.full),
+        "roofline": bench_roofline,
     }
     for section, fn in sections.items():
         if args.only and section != args.only:

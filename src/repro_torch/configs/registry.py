@@ -11,8 +11,10 @@ GNN: every shape of ``GNN_SHAPES`` is a training step
 (``configs.cells.gnn_train_step`` under ``gnn_cell_config``).  Recsys:
 ``serve_p99`` and ``serve_bulk`` forward batches, ``retrieval_cand`` the
 candidates one query is scored against, ``train_batch`` a training step
-(``configs.cells.recsys_train_step``).  ``build_cell`` (a lowerable cell
-on a mesh) waits for the port's mesh work.
+(``configs.cells.recsys_train_step``).  ``build_cell`` gives one cell on
+a mesh (``configs.cells.CellSpec``: fake args by default, the dry-run's
+unit) or JAX's skip reason; ``build_extra_cells`` the paper's own operator
+at mesh scale.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs import (
+    cells,
     command_r_plus_104b,
     dbrx_132b,
     equiformer_v2,
@@ -147,3 +150,53 @@ def gnn_cell_config(arch: str, shape: str):
     if p["shard_edges"]:
         cfg = dataclasses.replace(cfg, channel_shard=True, dtype=torch.bfloat16)
     return cfg
+
+
+def build_cell(arch: str, shape: str, mesh, n_layers_override: int | None = None,
+               **draw) -> cells.CellSpec | str:
+    """The cell ``arch``/``shape`` on ``mesh``, or its skip reason.
+
+    ``n_layers_override`` (LM family only) builds an unrolled L-layer
+    variant (``scan_layers=False``), from which the dry-run's
+    ``_extrapolate`` derives per-layer costs.  ``draw`` goes to the
+    builder: ``device``, ``fake`` (default True: fake args) and ``seed``.
+    """
+    entry = get_arch(arch)
+    if shape in entry.skips:
+        return entry.skips[shape]
+    cfg = entry.config()
+    if n_layers_override is not None and entry.family == "lm":
+        cfg = dataclasses.replace(cfg, n_layers=n_layers_override, scan_layers=False)
+
+    if entry.family == "lm":
+        if shape == "train_4k":
+            return cells.lm_train_cell(cfg, mesh, **LM_TRAIN, **draw)
+        if shape == "prefill_32k":
+            return cells.lm_prefill_cell(cfg, mesh, **LM_PREFILL, **draw)
+        if shape == "decode_32k":
+            return cells.lm_decode_cell(cfg, mesh, LM_DECODE["batch"], LM_DECODE["ctx"], **draw)
+        if shape == "long_500k":
+            return cells.lm_decode_cell(cfg, mesh, LM_LONG["batch"], LM_LONG["ctx"], **draw)
+
+    if entry.family == "gnn":
+        p = GNN_SHAPES[shape]
+        return cells.gnn_train_cell(
+            arch, gnn_cell_config(arch, shape), mesh,
+            n=p["n"], e=p["e"], d_feat=p["d_feat"], task=p["task"],
+            n_classes=p["n_classes"], n_graphs=p["n_graphs"],
+            shard_edges=p["shard_edges"], shape_name=shape, **draw,
+        )
+
+    if entry.family == "recsys":
+        if shape == "train_batch":
+            return cells.recsys_train_cell(cfg, mesh, RECSYS_SHAPES[shape], **draw)
+        if shape == "retrieval_cand":
+            return cells.recsys_retrieval_cell(cfg, mesh, RECSYS_SHAPES[shape], **draw)
+        return cells.recsys_serve_cell(cfg, mesh, RECSYS_SHAPES[shape], shape, **draw)
+
+    raise ValueError(f"unknown cell {arch}/{shape}")
+
+
+def build_extra_cells(mesh, **draw) -> list:
+    """Cells beyond the 40: the paper's own operator at mesh scale."""
+    return [cells.rdfizer_shuffle_cell(mesh, n_keys=1 << 24, **draw)]

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.hashset import HashSet
 from repro_torch.core.pjtt import PJTTHash, PJTTSorted
 from repro_torch.kernels.ops import RadixTable
+from repro_torch.models.layers import flatten
 
 
 def u32_tensor(a, device="cuda") -> torch.Tensor:
@@ -95,20 +96,11 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def state_from_params(params, device="cuda") -> dict:
-    """A JAX params pytree (nested dicts of arrays, ``np.asarray``-able)
-    -> a flat state dict keyed ``"mlp.fc0.w"``, as the port's modules name
-    their parameters; load it with ``module.load_state_dict``."""
-    out = {}
-
-    def walk(prefix, node):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(f"{prefix}{k}.", v)
-        else:
-            out[prefix[:-1]] = _tensor(node, device)
-
-    walk("", params)
-    return out
+    """A JAX params pytree (nested dicts of arrays, ``np.asarray``-able;
+    lists, such as an LM's unrolled ``blocks``, by index) -> a flat state
+    dict keyed ``"mlp.fc0.w"`` or ``"blocks.0.attn.q.w"``, as the port's
+    modules name their parameters; load it with ``module.load_state_dict``."""
+    return {k: _tensor(v, device) for k, v in flatten(params).items()}
 
 
 def kv_cache_from_numpy(k, v, pos, device="cuda"):

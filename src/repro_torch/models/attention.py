@@ -19,7 +19,6 @@ slot for ``k``/``v`` (``dynamic_update_slice``) and dropped for ``pos``
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -64,7 +63,7 @@ def rope_freq(d: int, theta: float) -> np.ndarray:
     return (1.0 / (theta ** (np.arange(0, half) * 2.0 / d))).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@layers.constant_cache
 def _freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
     # one copy to the device per table, not one per call
     return torch.from_numpy(rope_freq(d, theta)).to(device)

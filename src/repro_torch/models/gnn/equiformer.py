@@ -24,7 +24,6 @@ rematerialized.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any
 
 import numpy as np
@@ -68,7 +67,7 @@ def _m_blocks(cfg: EquiformerConfig):
     return blocks
 
 
-@functools.lru_cache(maxsize=None)
+@layers.constant_cache
 def _blocks(l_max: int, m_max: int, device: torch.device):
     """``_m_blocks`` as index tensors on ``device``, and for each irrep
     index where the SO(2) conv's output row comes from: (m, sign, j), the

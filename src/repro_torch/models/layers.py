@@ -11,12 +11,32 @@ converted weights.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.utils._python_dispatch import _disable_current_modes
+
+
+def constant_cache(fn):
+    """``functools.lru_cache`` for a function that builds constant tensors
+    (a table copied to the device once): it builds them outside every
+    dispatch mode, so inside the dry-run's trace (a ``FakeTensorMode``,
+    which takes real constants in, under counting modes) the cache never
+    holds a fake tensor and filling it counts no work, whichever trace
+    fills it first."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def run(*args):
+        with _disable_current_modes():
+            return cached(*args)
+
+    run.cache_clear = cached.cache_clear
+    return run
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.float32,
@@ -136,7 +156,8 @@ def remat(fn, enabled: bool = True):
 
 def nest(flat: dict) -> dict:
     """A flat dict keyed by dotted paths (``named_parameters``) -> the
-    nested params tree."""
+    nested params tree; a level whose keys are all indices (``blocks.0``,
+    ``blocks.1``, ...) becomes a list, as JAX's unrolled layers are."""
     out: dict = {}
     for path, t in flat.items():
         *parents, leaf = path.split(".")
@@ -144,12 +165,33 @@ def nest(flat: dict) -> dict:
         for k in parents:
             node = node.setdefault(k, {})
         node[leaf] = t
-    return out
+    return _lists(out)
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """``nest``'s inverse: a nested tree (dicts, lists by index) -> a flat
+    dict keyed by dotted paths (``"blocks.0.attn.q.w"``)."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(flatten(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_lists(node[str(i)]) for i in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors (a JAX params tree) as parameters named by
-    its paths (``embed.table``, ``layer0.radial_1_1_2.fc0.w``), so
+    """A nested dict of tensors (a JAX params tree; lists allowed) as
+    parameters named by its paths (``embed.table``, ``blocks.0.attn.q.w``,
+    ``layer0.radial_1_1_2.fc0.w``), so
     ``convert.state_from_params`` loads JAX's params unchanged; ``params()``
     gives the nested dict back."""
 
@@ -159,9 +201,11 @@ class ParamTree(nn.Module):
             self._register(self, tree)
 
     @staticmethod
-    def _register(module: nn.Module, tree: dict) -> None:
-        for k, v in tree.items():
-            if isinstance(v, dict):
+    def _register(module: nn.Module, tree) -> None:
+        items = enumerate(tree) if isinstance(tree, list) else tree.items()
+        for k, v in items:
+            k = str(k)  # a list's items are named by index (``blocks.0``)
+            if isinstance(v, (dict, list)):
                 child = nn.Module()
                 module.add_module(k, child)
                 ParamTree._register(child, v)

@@ -6,7 +6,7 @@ sort the (token, choice) pairs by expert, scatter them into capacity
 buffers, run one batched GLU over the expert axis, gather back.  The port
 has no mesh, so ``forward`` always takes it; JAX's ``_forward_sharded``
 (local dispatch on each data shard, FSDP gathers, a psum over ``model``)
-waits for the port's mesh work.
+waits for more than one card (``cfg.moe_quant_gather`` acts only there).
 
 JAX's idioms, mapped: ``lax.top_k`` keeps the lower index first among
 equal probabilities, and ``torch.topk`` promises no order for ties, so the
@@ -66,7 +66,10 @@ def _route(p, cfg: MoEConfig, xt):
     gate_vals, gate_idx = top_k(probs, k)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
     me = torch.mean(probs, dim=0)
-    fe = torch.mean(F.one_hot(gate_idx, E).to(torch.float32).sum(dim=1), dim=0)
+    # one-hot by comparison, as jax.nn.one_hot computes it: F.one_hot reads
+    # the indices' range on the host, a sync on the card
+    hot = gate_idx[..., None] == torch.arange(E, device=gate_idx.device)
+    fe = torch.mean(hot.to(torch.float32).sum(dim=1), dim=0)
     aux = E * torch.sum(me * fe)
     return gate_vals, gate_idx.to(torch.int32), aux
 

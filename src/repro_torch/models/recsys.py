@@ -8,7 +8,9 @@ path.  As in JAX it is a row fetch followed by a sum over the bag axis (not
 ``dedup_gather`` as an option for duplicate-heavy id streams.
 
 Only the single-device fetch is here (JAX's ``_fetch_rows`` with no mesh);
-the vocab-parallel fetch and the parameter specs need a mesh and wait.
+the vocab-parallel fetch (``_vocab_parallel_rows``, a shard_map over the
+``model`` axis) waits for more than one card.  ``param_specs`` gives JAX's
+partition specs for the dry-run's accounting.
 Gradients flow through the fetch, plain or deduplicated: the backward of
 each ``index_select`` is the mirrored scatter-add into a dense table
 gradient, as JAX's autodiff gives it.  On the card that scatter-add uses
@@ -27,6 +29,7 @@ from torch import nn
 
 from repro_torch.core.dedup_gather import gather_maybe_dedup
 from repro_torch.models import layers
+from repro_torch.models.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +44,19 @@ class WideDeepConfig:
     bag_size: int = 1
     dedup_cap: int | None = None  # PTT-style unique-gather cap (None = off)
     dtype: torch.dtype = torch.float32
+
+
+def param_specs(cfg: WideDeepConfig) -> dict:
+    """JAX's partition specs, as ``WideDeep``'s parameters nest: the tables'
+    vocab axis over ``model`` only (the lookup needs each model shard's full
+    row range), the MLP and head whole."""
+    mlp_specs = {f"fc{i}": {"w": P(None, None), "b": P(None)} for i in range(len(cfg.mlp))}
+    return {
+        "embed": P(None, "model", None),
+        "wide": P(None, "model"),
+        "mlp": mlp_specs,
+        "head": {"w": P(None, None), "b": P(None)},
+    }
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -15,11 +15,14 @@ tanh form.  Tied embeddings scale by ``sqrt(d_model)`` rounded to
 ``cfg.dtype`` first (45.25 in bf16 for d = 2048), as
 ``jnp.asarray(np.sqrt(d), dtype)`` does.
 
-What waits for the port's mesh work: ``param_specs``, ``cache_specs``,
-``batch_axes``, sequence parallelism (``constrain`` is the identity with
-no mesh, so single-device results do not change), the int8 expert gathers
-(``moe_quant_gather``) and ``scan_layers=False`` (the dry-run's unrolled
-variant); their config fields are kept, so the configs are JAX's.
+``cfg.scan_layers=False`` (the dry-run's unrolled variant) keeps
+``blocks`` as a list of per-layer dicts, as JAX's ``init`` builds it;
+every model function runs the same operations over either layout, so the
+two are bit-equal with the same weights.  ``param_specs``, ``cache_specs``
+and ``batch_axes`` give JAX's partition specs (``models.sharding.P``) for
+the dry-run's accounting; sequence parallelism and the int8 expert gathers
+(``moe_quant_gather``) act only across cards, so their config fields are
+kept and change nothing here (``constrain`` is the identity with no mesh).
 ``cfg.remat`` rematerializes each block where grad is enabled
 (``layers.remat``, JAX's ``jax.checkpoint`` with ``nothing_saveable``):
 only a block's input is kept for the backward pass.
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention, layers, moe, vocab_parallel
+from repro_torch.models.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,16 +126,10 @@ def _norm(cfg: LMConfig, p, x):
     return layers.rmsnorm(p, x) if cfg.norm == "rmsnorm" else layers.layernorm(p, x)
 
 
-def _check_scanned(cfg: LMConfig) -> None:
-    if not cfg.scan_layers:
-        raise NotImplementedError(
-            "scan_layers=False (the dry-run's unrolled layers) waits for the port's "
-            "dry-run and mesh work (ROADMAP Queue 1, item 19d)")
-
-
-def init_layers(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
-    """Every block's params, stacked on a leading ``L`` axis."""
-    lead = (cfg.n_layers,)
+def init_layers(gen: torch.Generator, cfg: LMConfig, device="cuda", lead=None) -> dict:
+    """Every block's params, stacked on a leading ``L`` axis (one layer's
+    with ``lead=()``)."""
+    lead = (cfg.n_layers,) if lead is None else lead
     p = {
         "ln1": _norm_init(cfg, device, lead),
         "attn": attention.init(gen, cfg.attn, cfg.dtype, device, lead),
@@ -145,11 +143,15 @@ def init_layers(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
 
 
 def init(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
-    """JAX's params tree, drawn from ``gen`` on ``device``."""
-    _check_scanned(cfg)
+    """JAX's params tree, drawn from ``gen`` on ``device``: ``blocks`` stacked,
+    or with ``scan_layers=False`` a list of per-layer dicts."""
+    if cfg.scan_layers:
+        blocks = init_layers(gen, cfg, device)
+    else:
+        blocks = [init_layers(gen, cfg, device, lead=()) for _ in range(cfg.n_layers)]
     p = {
         "embed": layers.embedding_init(gen, cfg.vocab, cfg.d_model, cfg.dtype, device),
-        "blocks": init_layers(gen, cfg, device),
+        "blocks": blocks,
         "ln_f": _norm_init(cfg, device),
     }
     if not cfg.tie_embeddings:
@@ -157,12 +159,13 @@ def init(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
     return p
 
 
-
 def unstack(blocks, n: int) -> list:
-    """Every layer's params, views of the stacked leaves by one ``unbind``
-    a leaf: its backward stacks the layers' gradients once, where ``n``
-    separate views would each add a zero-padded (L, ...) gradient into the
-    leaf's."""
+    """Every layer's params: the list itself where the layers are unrolled,
+    else views of the stacked leaves by one ``unbind`` a leaf: its backward
+    stacks the layers' gradients once, where ``n`` separate views would
+    each add a zero-padded (L, ...) gradient into the leaf's."""
+    if isinstance(blocks, list):
+        return blocks
     if isinstance(blocks, dict):
         per_key = {k: unstack(v, n) for k, v in blocks.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
@@ -179,6 +182,71 @@ class Transformer(layers.ParamTree):
         gen = torch.Generator(device=device).manual_seed(seed)
         super().__init__(init(gen, cfg, device))
         self.cfg = cfg
+
+
+# --------------------------------------------------------------- sharding
+
+
+def param_specs(cfg: LMConfig, serve: bool = False):
+    """JAX's partition-spec tree matching ``init``: layer leaves have a
+    leading (whole) L axis when stacked, and ``blocks`` is a list of
+    per-layer trees when unrolled.
+
+    Training (default): Megatron TP on ``model`` plus FSDP over ``data`` on
+    the other dim.  ``serve=True`` (dense archs): column/row-parallel over
+    the flattened (``data``, ``model``) axis, weights resident, no
+    optimizer state."""
+    lead = (None,) if cfg.scan_layers else ()
+
+    def lp(*spec):  # a layer param: the (whole) stacked axis first
+        return P(*(lead + spec))
+
+    norm_spec = {"scale": lp(None)} if cfg.norm == "rmsnorm" else {
+        "scale": lp(None), "bias": lp(None)}
+    final_norm = {"scale": P(None)} if cfg.norm == "rmsnorm" else {
+        "scale": P(None), "bias": P(None)}
+    if serve and not cfg.moe:
+        flat = ("data", "model")
+        col, row, bias, head = lp(None, flat), lp(flat, None), lp(flat), P(None, flat)
+    else:
+        col, row, bias = lp("data", "model"), lp("model", "data"), lp("model")
+        head = P("data", "model")
+    attn = {"q": {"w": col}, "k": {"w": col}, "v": {"w": col}, "o": {"w": row}}
+    if cfg.qkv_bias:
+        for n in ("q", "k", "v"):
+            attn[n]["b"] = bias
+    block = {"ln1": norm_spec, "attn": attn, "ln2": norm_spec}
+    if cfg.moe:
+        # TP inside each expert: up/gate column-parallel on d_ff, down
+        # row-parallel, the d_model dim FSDP-sharded over data
+        block["moe"] = {"router": {"w": lp(None, None)}, "up": lp(None, "data", "model"),
+                        "gate": lp(None, "data", "model"), "down": lp(None, "model", "data")}
+    else:
+        block["ffn"] = {"up": {"w": col}, "gate": {"w": col}, "down": {"w": row}}
+    specs = {
+        "embed": {"table": P("model", "data")},  # vocab_parallel's storage layout
+        "blocks": block if cfg.scan_layers else [block] * cfg.n_layers,
+        "ln_f": final_norm,
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"w": head}
+    return specs
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes that shard the batch dim: ('pod','data') or ('data',)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def cache_specs(cfg: LMConfig, dp=("data",)) -> attention.KVCache:
+    """JAX's layout of the decode cache: batch over ``dp``, the length over
+    ``model`` (the split-KV decode layout; KV-head counts do not divide a
+    16-way axis)."""
+    return attention.KVCache(
+        k=P(None, dp, "model", None, None),
+        v=P(None, dp, "model", None, None),
+        pos=P(None, dp, "model"),
+    )
 
 
 # ----------------------------------------------------------------- forward
@@ -214,7 +282,6 @@ def _embed(cfg: LMConfig, params, tokens):
 
 def forward(cfg: LMConfig, params, tokens):
     """tokens (B, S) -> final hidden states (B, S, d)."""
-    _check_scanned(cfg)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
@@ -255,7 +322,6 @@ def decode_step(cfg: LMConfig, params, cache: attention.KVCache, tokens, positio
     """One decode step.  tokens (B, 1); position a 0-d or (B,) int tensor.
     Returns (logits (B, 1, V), cache): the cache passed in, each layer's
     slice written in place."""
-    _check_scanned(cfg)
     x = _embed(cfg, params, tokens)
     for i, lp in enumerate(unstack(params["blocks"], cfg.n_layers)):
         lcache = attention.KVCache(cache.k[i], cache.v[i], cache.pos[i])

@@ -4,7 +4,7 @@ The counterpart of ``repro.models.vocab_parallel``.  With no mesh active,
 JAX's ``embed`` is ``jnp.take(table, ids, axis=0)`` and ``tied_logits`` is
 ``h @ table.T``; the port has no mesh, so these are the forms it runs.  The
 shard_map arms (the table sharded over ``model`` and ``data``, a masked
-local take and a psum) wait for the port's mesh work.
+local take and a psum) wait for more than one card.
 """
 
 from __future__ import annotations

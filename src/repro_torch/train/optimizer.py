@@ -22,6 +22,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models.sharding import P
 from repro_torch.train.tree import leaves, tree_map
 
 CHUNK = 1 << 24  # elements a slice of a leaf (64 MB of fp32)
@@ -63,6 +64,11 @@ class AdamW:
         device = leaves(params)[0].device
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device), m=zeros,
                           v=tree_map(torch.clone, zeros))
+
+    def state_specs(self, param_specs) -> AdamWState:
+        """The optimizer state's partition specs: the moments are laid out
+        as the params (``param_specs``), the step whole."""
+        return AdamWState(step=P(), m=param_specs, v=tree_map(lambda s: s, param_specs))
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params):

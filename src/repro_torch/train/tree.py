@@ -1,9 +1,10 @@
 """Pytrees of tensors in ``jax.tree.flatten``'s leaf order.
 
 A dict's items are visited in the order of their keys read as dotted paths
-(``"mlp.fc0.w"`` -> ``("mlp", "fc0", "w")``), so the flat dict of a
-module's ``named_parameters`` flattens as JAX flattens the nested params
-dict it mirrors; for keys without dots this is JAX's sorted-key order.
+(``"mlp.fc0.w"`` -> ``("mlp", "fc0", "w")``, an index part such as the
+``10`` of ``blocks.10`` by number), so the flat dict of a module's
+``named_parameters`` flattens as JAX flattens the nested params tree it
+mirrors; for keys without dots this is JAX's sorted-key order.
 Tuples, lists and NamedTuples are visited in order, ``None`` holds no leaf,
 and everything else is a leaf.  ``torch.utils._pytree`` visits dicts in
 insertion order, which is why the port keeps this one.
@@ -15,7 +16,9 @@ from typing import Any, Callable
 
 
 def _key(k) -> tuple:
-    return tuple(str(k).split("."))
+    # an index part (a list's item, ``blocks.10``) sorts by number, as JAX
+    # visits a list
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p) for p in str(k).split("."))
 
 
 def _children(node) -> list | None:

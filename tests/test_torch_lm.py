@@ -359,8 +359,18 @@ def test_prefill_microbatch_waves_match_jax():
 
 
 def test_unscanned_layers_wait_for_the_mesh_work():
-    with pytest.raises(NotImplementedError, match="19d"):
-        Transformer(tcfg("qwen2.5-3b", scan_layers=False), device="cpu")
+    """The mesh work is in: ``scan_layers=False`` builds JAX's list of
+    per-layer dicts, takes JAX's unrolled params and runs as JAX's does
+    (bit-equality with the stacked layers is in ``test_torch_dryrun.py``)."""
+    jc, tc = jcfg("qwen2.5-3b", scan_layers=False), tcfg("qwen2.5-3b", scan_layers=False)
+    jp = jtr.init(KEY, jc)
+    model = Transformer(tc, device="cpu")
+    model.load_state_dict(state_from_params(jp, device="cpu"))
+    assert len(model.params()["blocks"]) == tc.n_layers
+    toks = tokens(tc, 2, 7, seed=3)
+    with torch.no_grad():
+        got = transformer.forward(tc, model.params(), t(toks))
+    close(got, jtr.forward(jc, jp, toks))
 
 
 def test_registry_lm_entries_equal_jax():
