@@ -50,7 +50,7 @@ Phases, each of which makes the script exit non-zero when it fails:
      the outputs, and by its search compares and sort compare-exchanges;
      print its chain of dependent loads (the k-ary searches' and a
      bisection's);
-  8. serve the six ``serve/bench.py`` query classes at batch 1, 8, 64 and
+  8. serve the six ``serve/bench.py`` query classes at batch 1, 64 and
      4096: the card's rows must equal the CPU's over the 100K stores at
      batch 1, 64 and 4096 (and the 1M stores at batch 1), and over the
      SOM 100K and OJM 20K stores a query a class must equal
@@ -63,7 +63,7 @@ Phases, each of which makes the script exit non-zero when it fails:
      10K and 100K rows, every kind, duplicate rate, 1 and 2 predicate-object
      maps, optimized and naive: each 10K cell's triples and φ statistics
      equal a CPU run's, and ``bench.op_model`` at 10K gives the CPU's φ;
-     ``examples/kg_biomedical.py`` at 20K rows on the card and the CPU:
+     ``examples/kg_biomedical.py`` at 10K rows on the card and the CPU:
      the same triples, counts and φ ratios;
  10. a live store over the 100K OJM store: 10,000 inserts (new terms among
      them) and 10,000 deletes (re-inserts and duplicates among them); the
@@ -143,7 +143,21 @@ Phases, each of which makes the script exit non-zero when it fails:
      mesh's 256 shards stacked on the card (2^22 slots each), its ``is_new``
      count equal to a ``torch.unique`` count of the valid keys; qwen2.5-3b
      ``decode_32k`` traced, which does not fit one card; no K1-K4 launch;
- 21. print the kernels line (one JSON object, all four kernels), the card
+ 21. collectives across ranks (``phase_collectives``): 4 spawned ranks of a
+     (2, 2) ``ProcessMesh`` on the one card (``launch.mesh.run_ranks``; gloo
+     on CUDA tensors, the ranks sharing the card; backend, world size and
+     card count logged): the shuffle PTT with 2^24 ``mix64`` keys (75%
+     duplicates) and 2^22 slots a rank, ``is_new`` equal to a
+     ``torch.unique`` count and tables, ``is_new`` and flag equal to the
+     stacked arm's at ``n_shards = 4`` bit for bit; the PJTT and the probe
+     over the 1M OJM join equal to the stacked arm's and to phase 14's rows;
+     Wide & Deep at full width at ``serve_p99``, plain and with
+     ``dedup_cap``, its gathered logits against the one-process forward
+     (rtol 1e-5, atol 1e-6); qwen2.5-3b's 151,936 x 2,048 table through
+     ``embed`` (exact) and ``tied_logits``; one mixtral-8x7b MoE layer in
+     bf16, plain and with the int8 gather, and in fp32 at a capacity that
+     drops no token against ``_forward_local``; no K1-K4 launch;
+ 22. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.  Generated data
@@ -184,7 +198,9 @@ CARD = "cuda"  # the device of the serving phases (6-8)
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line, prefixed with the seconds since the script started (the
+    phases' time budget is read off these)."""
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f}] {msg}", flush=True)
 
 
 class Failed(Exception):
@@ -790,14 +806,21 @@ def _expected_triples(d: str, tb) -> dict[str, int]:
 
 def expected_triples(tb, d) -> dict[str, int]:
     """Distinct (subject, object) value pairs per predicate, by numpy from
-    the written CSV files (plain comma-separated cells, no quoting)."""
+    the written CSV files (plain comma-separated cells, no quoting).  Each
+    column's strings are coded once (``np.unique``), and the join expands
+    the codes, not the strings."""
     import numpy as np
 
-    def read(path):
+    def read(path):  # one split over the whole file: every row has every column
         with open(path, encoding="utf-8") as f:
-            header, *rows = f.read().splitlines()
-        cols = zip(*(r.split(",") for r in rows))
-        return {h: np.array(c) for h, c in zip(header.split(","), cols, strict=True)}
+            header, body = f.read().split("\n", 1)
+        names = header.split(",")
+        cells = np.array(body.removesuffix("\n").replace("\n", ",").split(","))
+        cells = cells.reshape(-1, len(names))
+        return {h: cells[:, i] for i, h in enumerate(names)}
+
+    def codes(a):
+        return np.unique(a, return_inverse=True)[1]
 
     tables = {"child.csv": read(os.path.join(d, "child.csv"))}
     if tb.parent is not None:
@@ -809,10 +832,10 @@ def expected_triples(tb, d) -> dict[str, int]:
         len(np.unique(tables[m.source.path][m.subject.columns[0]]))
         for m in tb.doc.triples_maps.values() if m.subject_class)}
     tm = tb.doc.triples_maps["TriplesMap1"]
-    subj = child["MUTATION_ID"]
+    subj = codes(child["MUTATION_ID"])
     if tb.parent is None:
         for pom in tm.poms:
-            out[pom.predicate] = _distinct_pairs(subj, child[pom.object_map.reference])
+            out[pom.predicate] = _distinct_pairs(subj, codes(child[pom.object_map.reference]))
         return out
     parent = tables["parent.csv"]
     keys, kid = np.unique(np.concatenate([child["ACCESSION_NUMBER"],
@@ -824,7 +847,7 @@ def expected_triples(tb, d) -> dict[str, int]:
     rows = np.repeat(np.arange(len(ck)), cnt)
     offs = np.arange(len(rows)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
     prow = order[starts[ck[rows]] + offs]
-    n = _distinct_pairs(subj[rows], parent["EXON_ID"][prow])
+    n = _distinct_pairs(subj[rows], codes(parent["EXON_ID"])[prow])
     for pom in tm.poms:  # one exon map per pom, all over the same join
         out[pom.predicate] = n
     return out
@@ -981,7 +1004,7 @@ def check_paper_tier(beds, kind, path, result, out, digests) -> None:
 
 # ------------------------------------------------------------------ serving
 
-SERVE_BATCHES = (1, 8, 64, 4096)
+SERVE_BATCHES = (1, 64, 4096)  # (1, 8, 64, 4096) until phase 21 needed the time
 K4_BATCHES = (1, 8, 64)
 K4_CLASSES = ("single", "bgp3")  # the chain classes the fast path takes
 OPS_PER_ROUND = 8  # K4: midpoint, clamp, two compares, the select of lo/hi
@@ -1189,7 +1212,7 @@ def _results_equal(a, b, batch) -> bool:
 
 
 def phase_serve(stores):
-    """The six query classes at batch 1, 8, 64 and 4096: rows across
+    """The six query classes at batch 1, 64 and 4096: rows across
     devices and against the oracle, then the 1M stores' throughput and
     latency on the card with K4's launches counted.  Returns K4's launches
     in the 1M serving run."""
@@ -1262,7 +1285,7 @@ def phase_serve(stores):
         ex = get_executor(store)
         p0, classes = bench._classes(store)
         plan, batches, fops = bench._encoded_batches(ex, dict(classes)[name], p0, batch,
-                                                     8 if batch == 4096 else 32, 4)
+                                                     32 if name == "bgp3" else 8, 4)
         ex.execute_encoded(plan, batches[0], fops)
         dev = []
         for _ in range(3):
@@ -1366,7 +1389,7 @@ def phase_paper_figs(kernel_mods):
     return got
 
 
-KG_EXAMPLE_ROWS = 20_000
+KG_EXAMPLE_ROWS = 10_000  # 20,000 until phase 21 needed the time
 
 
 def kg_example(kernel_mods) -> dict:
@@ -1823,7 +1846,7 @@ def phase_recsys():
     equal a plain ``index_select``, the distinct count numpy's), then Wide
     & Deep at full width: ``serve_p99`` and ``serve_bulk`` batches of
     Zipf(1.3) ids, plain and with ``dedup_cap`` 1.5x the distinct ids (the
-    same logits, bit for bit), 64 warm forwards a shape and mode timed; a
+    same logits, bit for bit), ``WD_TIMED`` warm forwards a shape and mode timed; a
     retrieval over 1,000,000 candidates; the ``serve_p99`` logits and a
     slice of the retrieval scores against a CPU copy of the weights."""
     import dataclasses
@@ -1926,7 +1949,10 @@ def phase_distributed(beds):
     numpy first-occurrence oracle; at 2^16 keys the card's tables,
     ``is_new`` and flag equal a CPU run's; the PJTT over the 1M OJM
     testbed's join, each child row's subjects against the single-device
-    ``pjtt.probe_sorted``'s."""
+    ``pjtt.probe_sorted``'s.  Returns the join's inputs (saved for phase
+    21) and the sha256 of the rows' sorted subjects."""
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -1987,11 +2013,15 @@ def phase_distributed(beds):
         return torch.where(v, s, big).sort(dim=1).values
 
     check(not bool(bovf) and not bool(povf), "distributed PJTT: a bin or a span overflowed")
-    check(torch.equal(rowsets(subs, valid), rowsets(one.subjects, one.valid)),
+    rows = rowsets(subs, valid)
+    check(torch.equal(rows, rowsets(one.subjects, one.valid)),
           "distributed PJTT: a child row's subjects differ from pjtt.probe_sorted's")
     log(f"distributed PJTT, {S} shards, 1M OJM join ({len(pk)} parent rows, {len(ck)} child "
         f"rows, K={K}): build {t_build:.2f} ms, probe {t_probe:.2f} ms wall; single-device "
         f"build+probe {t_single:.2f} ms; every row's subjects equal the single-device probe's")
+    join_path = os.path.join(WORK, "ojm_join.pt")
+    torch.save({"pk": pk.cpu(), "ps": ps.cpu(), "ck": ck.cpu(), "K": K}, join_path)
+    return join_path, hashlib.sha256(rows.cpu().numpy().tobytes()).hexdigest()
 
 
 def _key_tree(x):
@@ -2333,7 +2363,9 @@ def phase_training(kernel_mods):
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 peak (NVIDIA's data sheet)
 LM_WARM, LM_TIMED = 2, 16  # decode steps a cell: warm-up, timed
-LM_SERVE = dict(batch=4, prompt=512, gen=64)  # qwen's requests through serve_lm
+# qwen's requests through serve_lm; prompt 512 until phase 21 needed the time (the
+# cache check fills the cache with one decode step a prompt position)
+LM_SERVE = dict(batch=4, prompt=128, gen=64)
 QWEN_DECODE_BATCH = 32  # decode_32k's batch, cut from 128: params + cache 45.4 GB
 MIXTRAL_LAYERS = 8  # cut from 32: 32 layers in bf16 are 93 GB, 8 are 23.7 GB
 PREFILL_BATCH, PREFILL_WARM_SEQ = 1, 4096  # prefill_32k's batch, cut from 32
@@ -2828,16 +2860,17 @@ def phase_lm(kernel_mods):
 
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (TF32 is off here)
 LM_TRAIN_BATCH = 3  # train_4k's batch, cut from 256: the most sequences that fit with remat
-LM_TRAIN_WARM, LM_TRAIN_TIMED = 1, 4
+LM_TRAIN_WARM, LM_TRAIN_TIMED = 1, 2  # 4 timed steps until phase 21 needed the time
 LM_TRAIN_IDS = 4096  # tokens drawn from the first 4,096 ids: a unigram the step can learn
 REMAT_DEPTHS = (2, 4)  # remat off against on at these depths, batch 1, seq 4,096
 LM_TRAIN_PARITY = dict(layers=2, batch=1, seq=64, steps=2)  # fp32, full width
-GNN_WARM, GNN_TIMED = 1, 3
+GNN_WARM, GNN_TIMED = 1, 2  # 3 timed steps until phase 21 needed the time
 GNN_TIMED_SMALL = 11  # the small cells' timed steps: 12 losses, held to JAX's
 # (arch, shape) -> the factor both n and e are cut by (the average degree kept):
-# the card holds the uncut graph nowhere else (PERF.md section 4 has the reckoning)
+# the card holds the uncut graph nowhere else (PERF.md section 4 has the reckoning);
+# Equiformer's ogb_products 160, not the 114 the card holds, for the run's time
 GNN_CUTS = {("meshgraphnet", "ogb_products"): 9, ("nequip", "ogb_products"): 8,
-            ("equiformer-v2", "ogb_products"): 114, ("equiformer-v2", "minibatch_lg"): 3}
+            ("equiformer-v2", "ogb_products"): 160, ("equiformer-v2", "minibatch_lg"): 3}
 GNN_SMALL = ("full_graph_sm", "molecule")  # the cells held to JAX's losses
 # JAX's losses over 12 train steps at each small cell's published config,
 # from the port's seed-0 weights drawn on the CPU (the cells' own), on the
@@ -2966,7 +2999,7 @@ def phase_lm_train(kernel_mods, batch: int = LM_TRAIN_BATCH):
     """qwen2.5-3b trains at its published widths, all 36 layers, bf16, with
     per-layer remat, through ``configs.cells.lm_train_step`` (the JAX cell's
     AdamW(lr=1e-4, weight_decay=0.1)) at ``batch`` x 4,096 (``train_4k``,
-    the batch cut from 256): 1 warm-up and 4 timed steps, step,
+    the batch cut from 256): 1 warm-up and 2 timed steps, step,
     forward+backward and AdamW ms by CUDA events, the peak memory and the
     loss (finite, falling), each beside its bound.  Remat off against on at
     2 and 4 layers, batch 1, seq 4,096: their peaks, and what that gives
@@ -3174,7 +3207,7 @@ def phase_gnn(kernel_mods):
     through ``configs.cells.gnn_train_step`` under ``gnn_cell_config``, on
     ``random_graph`` batches (``GNN_CUTS`` the graphs cut where the card
     cannot hold them): step, forward+backward and AdamW ms, peak memory,
-    the loss over 3 steps after 1 warm-up (finite everywhere; 11 on the
+    the loss over 2 steps after 1 warm-up (finite everywhere; 11 on the
     small cells, each loss within ``GNN_TRAJ_RTOL`` of JAX's from the same
     weights to JAX's blow-up and within ``GNN_TRAJ_AFTER`` times after it,
     and falling where JAX's falls), each beside its
@@ -3315,6 +3348,438 @@ def phase_gnn(kernel_mods):
     log(f"launches of K1-K4 in the GNN phase: {launches}")
 
 
+# ------------------------------------------------------------------ slice 12
+
+COLL_MESH = (2, 2)  # (data, model) ranks, all on the one card
+COLL_DEVICE = "cuda"  # the ranks' device (a rehearsal on the CPU sets "cpu")
+COLL_KEYS = 1 << 24  # the shuffle's keys: rdfizer/shuffle_dedup, 2^22 slots a rank
+COLL_TIMEOUT = 300  # s: each collective, and the ranks' whole run
+WD_COLL_TIMED = 8  # warm sharded Wide & Deep forwards timed a mode
+LM_TOKENS = (4, 512)  # the vocab-parallel and MoE token batch: 2,048 tokens
+MOE_RTOL = 1e-5  # fp32 sharded MoE against _forward_local: of the largest |y|
+BF16_NORM_TOL = 2e-2  # bf16 sharded MoE: ||a - b|| / ||b|| against _forward_local in bf16
+INT8_NORM_TOL = 5e-2  # the int8 gather's bf16 output against the plain gather's
+
+
+def _ranks_wall(fn):
+    """``fn()``'s result and its wall ms on this rank, from a barrier to the
+    end of a synchronize and a second barrier (the slowest rank's time)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    dist.barrier()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _sync() -> None:
+    import torch
+
+    if COLL_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _norm_err(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _coll_shuffle(mesh, rep, join_path):
+    """The shuffle as rdfizer/shuffle_dedup on a 4-device mesh, the PJTT and
+    the probe over the 1M OJM join, on this rank; rank 0 holds the gathered
+    results to the stacked arm's at ``n_shards = 4``."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import cells
+    from repro_torch.core import distributed as D
+    from repro_torch.models import sharding
+
+    rank0 = torch.distributed.get_rank() == 0
+    n = mesh.size
+    spec = sharding.P(mesh.axis_names)
+    cell = cells.rdfizer_shuffle_cell(mesh, COLL_KEYS, device=COLL_DEVICE, fake=False)
+    thi, tlo, khi, klo, valid = cell.args
+    blocks = [sharding.local_block(x, spec, mesh) for x in (thi, tlo, khi, klo, valid)]
+    (table, is_new, ovf), ms = _ranks_wall(lambda: D.distributed_insert(
+        mesh, D.ShardedPTT(blocks[0], blocks[1]), *blocks[2:]))
+    rep["shuffle_ms"], rep["shuffle_ovf"] = ms, bool(ovf)
+    rep["table_bytes"] = 2 * thi.numel() * 4
+    got = [sharding.gather_block(x, spec, mesh) for x in (table.hi, table.lo, is_new)]
+    del blocks, table
+    if rank0:
+        keys = (khi.long() << 32) | (klo.long() & 0xFFFFFFFF)
+        rep["n_new"] = int(got[2].sum())
+        rep["n_distinct"] = int(torch.unique(keys[valid]).numel())
+        del keys
+        _sync()
+        t0 = time.perf_counter()
+        st, snew, sovf = D.distributed_insert(n, D.ShardedPTT(thi, tlo), khi, klo, valid)
+        _sync()
+        rep["stacked_ms"] = (time.perf_counter() - t0) * 1e3
+        rep["shuffle_equal_stacked"] = (torch.equal(got[0], st.hi) and torch.equal(
+            got[1], st.lo) and torch.equal(got[2], snew) and bool(sovf) == bool(ovf))
+        del st, snew
+    del cell, thi, tlo, khi, klo, valid, got
+    torch.cuda.empty_cache()
+
+    j = torch.load(join_path)
+    pk, ps, ck = (j[k].to(COLL_DEVICE) for k in ("pk", "ps", "ck"))
+    K = j["K"]
+
+    def pad(x):  # -1 lanes are invalid and are not sent
+        return torch.cat([x, x.new_full((-len(x) % n,), -1)])
+
+    pk, ps, ck_pad = pad(pk), pad(ps), pad(ck)
+    (idx, bovf), rep["build_ms"] = _ranks_wall(lambda: D.build_distributed_pjtt(
+        mesh, *(sharding.local_block(x, spec, mesh) for x in (pk, ps))))
+    ck_block = sharding.local_block(ck_pad, spec, mesh)
+    (subs, pvalid, povf), rep["probe_ms"] = _ranks_wall(
+        lambda: D.distributed_ojm_probe(mesh, idx, ck_block, K))
+    rep["pjtt_ovf"] = bool(bovf) or bool(povf)
+    got = [sharding.gather_block(x, spec, mesh) for x in (idx.skeys, idx.ssubj, subs, pvalid)]
+    if rank0:
+        sidx, sbovf = D.build_distributed_pjtt(n, pk, ps)
+        ssubs, svalid, spovf = D.distributed_ojm_probe(n, sidx, ck_pad, K)
+        rep["pjtt_equal_stacked"] = all(torch.equal(a, b) for a, b in zip(
+            got, (sidx.skeys, sidx.ssubj, ssubs, svalid))) and (
+            bool(sbovf) or bool(spovf)) == rep["pjtt_ovf"]
+        big = 2**31 - 1
+        rows = torch.where(got[3], got[2], big)[: len(ck)].sort(dim=1).values
+        rep["rowsets_sha256"] = hashlib.sha256(rows.cpu().numpy().tobytes()).hexdigest()
+        rep["join_rows"] = (len(j["pk"]), len(ck), K)
+    del idx, subs, pvalid, got
+    torch.cuda.empty_cache()
+
+
+def _coll_wide_deep(mesh, rep):
+    """Wide & Deep at its published width at serve_p99, plain and with
+    ``dedup_cap``, on this rank's batch block; rank 0 holds the gathered
+    logits to the one-process forward from the same weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import wide_deep
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.models import sharding
+    from repro_torch.models.recsys import WideDeep
+
+    cfg = wide_deep.config()
+    F, V, B = cfg.n_sparse, cfg.vocab_per_field, RECSYS_SHAPES["serve_p99"]
+    rng = np.random.default_rng(0)
+    zipf = (np.minimum(rng.zipf(1.3, size=(B, F, 1)), V) - 1).astype(np.int32)
+    dense = rng.normal(size=(B, cfg.n_dense)).astype(np.float32)
+    # a cap no rank's ids can pass: the whole batch's distinct ids
+    cap = len(np.unique(zipf + (np.arange(F, dtype=np.int32) * V)[None, :, None]))
+    sp, de = torch.from_numpy(zipf).to(COLL_DEVICE), torch.from_numpy(dense).to(COLL_DEVICE)
+    bs = sharding.token_spec(B, mesh)
+    sp_b, de_b = sharding.local_block(sp, bs, mesh), sharding.local_block(de, bs, mesh)
+    model = WideDeep(cfg, device=COLL_DEVICE, seed=0, mesh=mesh).eval()
+    torch.cuda.empty_cache()
+    rep["wd_table_block"] = tuple(model.embed.shape)
+    logits = {}
+    with torch.inference_mode(), sharding.set_mesh(mesh):
+        for mode, c in {"plain": cfg, "dedup": dataclasses.replace(cfg, dedup_cap=cap)}.items():
+            model.cfg = c
+            out = model(sp_b, de_b)
+            times = [_ranks_wall(lambda: model(sp_b, de_b))[1] for _ in range(WD_COLL_TIMED)]
+            logits[mode] = sharding.gather_block(out, bs, mesh)
+            rep[f"wd_{mode}_ms"] = statistics.median(times)
+    rep["wd_cap"] = cap
+    del model
+    torch.cuda.empty_cache()
+    if torch.distributed.get_rank() == 0:
+        one = WideDeep(cfg, device=COLL_DEVICE, seed=0).eval()
+        with torch.inference_mode():
+            ref = one(sp, de)
+        del one
+        torch.cuda.empty_cache()
+        for mode, got in logits.items():
+            rep[f"wd_{mode}_ok"] = (got.shape == ref.shape and bool(torch.isfinite(got).all())
+                                    and torch.allclose(got, ref, rtol=1e-5, atol=1e-6))
+            rep[f"wd_{mode}_err"] = float((got - ref).abs().max())
+
+
+def _coll_vocab(mesh, rep):
+    """qwen2.5-3b's (V, d) table at 151,936 x 2,048 sharded P("model",
+    "data"): ``embed`` (bf16, exact) and ``tied_logits`` (fp32 within rtol
+    1e-5, atol 1e-6; bf16 within one bf16 step of the largest logit) on
+    this rank's tokens against the no-mesh forms, block by block."""
+    import torch
+
+    from repro_torch.configs import qwen2_5_3b
+    from repro_torch.models import sharding, vocab_parallel
+
+    cfg = qwen2_5_3b.config()
+    V, d, n = cfg.vocab, cfg.d_model, LM_TOKENS[0] * LM_TOKENS[1]
+    dev = COLL_DEVICE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    table = (torch.randn((V, d), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    ids = torch.randint(0, V, (n,), generator=gen, device=dev)
+    h = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+    ts = sharding.token_spec(n, mesh)
+    tspec, lspec = sharding.P("model", "data"), sharding.P(ts[0], "model")
+    tb, ids_b, h_b = (sharding.local_block(x, s, mesh) for x, s in
+                      ((table, tspec), (ids, ts), (h, ts)))
+    with sharding.set_mesh(mesh):
+        rows, rep["embed_ms"] = _ranks_wall(lambda: vocab_parallel.embed(tb, ids_b))
+        logits, rep["logits_ms"] = _ranks_wall(lambda: vocab_parallel.tied_logits(tb, h_b))
+        logits32 = vocab_parallel.tied_logits(tb.float(), h_b.float())
+    ok = torch.equal(rows, sharding.local_block(vocab_parallel.embed(table, ids), ts, mesh))
+    ref = sharding.local_block(vocab_parallel.tied_logits(table, h), lspec, mesh)
+    step = float(ref.float().abs().max()) * 2.0**-7
+    err = float((logits.float() - ref.float()).abs().max())
+    ok &= logits.shape == ref.shape and err <= step
+    del ref
+    ref32 = sharding.local_block(vocab_parallel.tied_logits(table.float(), h.float()), lspec,
+                                 mesh)
+    ok &= torch.allclose(logits32, ref32, rtol=1e-5, atol=1e-6)
+    err32 = float((logits32 - ref32).abs().max())
+    flags = sharding.pmax(torch.tensor([0 if ok else 1], device=dev), mesh.axis_names, mesh)
+    errs = sharding.pmax(torch.tensor([err, err32], device=dev), mesh.axis_names, mesh)
+    rep["vocab_ok"] = int(flags) == 0
+    rep["vocab_err_bf16"], rep["vocab_err_fp32"] = (float(e) for e in errs)
+    rep["vocab_blocks"] = (tuple(tb.shape), tuple(logits.shape))
+    del table, tb, logits, logits32, ref32
+    torch.cuda.empty_cache()
+
+
+def _coll_moe(mesh, rep):
+    """One mixtral-8x7b MoE layer at its widths on this rank's tokens: bf16
+    with the plain and the int8 gather; fp32 at a capacity that drops no
+    token against ``_forward_local`` (rank 0: every token with the plain
+    gather, data row 0's with the int8 gather's dequantized weights)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import mixtral_8x7b
+    from repro_torch.models import layers, moe, sharding, transformer
+
+    lm = mixtral_8x7b.config()
+    base = lm.moe_cfg
+    E, k = base.n_experts, base.top_k
+    nodrop = base._replace(capacity_factor=E / k)  # cap = n + 1: no expert can overflow
+    n = LM_TOKENS[0] * LM_TOKENS[1]
+    gen = torch.Generator(device=COLL_DEVICE).manual_seed(3)
+    full = moe.init(gen, base, torch.float32, device=COLL_DEVICE)
+    x = torch.randn((n, base.d_model), generator=gen, device=COLL_DEVICE)
+    # one layer's MoE specs: router whole, gate/up (None, data, model), down (None, model, data)
+    one = dataclasses.replace(lm, n_layers=1, scan_layers=False)
+    specs = transformer.param_specs(one)["blocks"][0]["moe"]
+    p32 = layers.nest(convert.shard_state_from_params(full, specs, mesh, COLL_DEVICE))
+    p16 = {k_: (v.to(torch.bfloat16) if k_ != "router" else v) for k_, v in p32.items()}
+    ts = sharding.token_spec(n, mesh)
+    xb = sharding.local_block(x, ts, mesh)
+    rank0 = torch.distributed.get_rank() == 0
+    if not rank0:
+        del full
+    torch.cuda.empty_cache()
+    out = {}
+    x16 = xb.to(torch.bfloat16)
+    with torch.inference_mode(), sharding.set_mesh(mesh):
+        for name, cfg, p, xin in (
+                ("bf16", base, p16, x16),
+                ("bf16_int8", base._replace(quantized_gather=True), p16, x16),
+                ("bf16_nodrop", nodrop, p16, x16),
+                ("fp32", nodrop, p32, xb),
+                ("fp32_int8", nodrop._replace(quantized_gather=True), p32, xb)):
+            (y, aux), ms = _ranks_wall(lambda: moe.forward(p, cfg, xin))
+            out[name] = (y, aux)
+            rep[f"moe_{name}_ms"] = ms
+            rep[f"moe_{name}_finite"] = bool(torch.isfinite(y).all()) and bool(
+                torch.isfinite(aux))
+        # the pairs a rank's arm drops at 1.25, against the local arm's over all tokens
+        rep["moe_dims"] = (base.d_model, base.d_ff, E, k)
+        rep["moe_local_tokens"] = xb.shape[0]
+        _, gidx, _ = moe._route(p32, base, xb)
+        rep["moe_cap_sharded"] = moe.capacity(base, xb.shape[0])
+        over = torch.bincount(gidx.reshape(-1).long(), minlength=E) - rep["moe_cap_sharded"]
+        rep["moe_drop_sharded"] = int(sharding.psum(over.clamp(min=0).sum().reshape(1), "data"))
+    ys = {name: sharding.gather_block(y, ts, mesh) for name, (y, _) in out.items()}
+    rep["moe_aux"] = float(out["fp32"][1])
+    rep["moe_int8_vs_plain_bf16"] = _norm_err(ys["bf16_int8"], ys["bf16"])
+    if rank0:
+        with torch.inference_mode():
+            y_ref = moe._forward_local(full, nodrop, x[None])[0][0]
+            rep["moe_fp32_err"] = float((ys["fp32"] - y_ref).abs().max() / y_ref.abs().max())
+            # bf16 against bf16: the same routing (both route the bf16 tokens)
+            full16 = {k_: (v.to(torch.bfloat16) if k_ != "router" else v)
+                      for k_, v in full.items()}
+            y16 = moe._forward_local(full16, nodrop, x[None].to(torch.bfloat16))[0][0]
+            rep["moe_bf16_err"] = _norm_err(ys["bf16_nodrop"], y16)
+            del y_ref, full16, y16
+            # data row 0's weights as its ranks hold them after the int8 gather
+            D_, M_ = mesh.sizes
+            deq = {w: _dequantized_row(full[w], da, ma, 0, D_, M_)
+                   for w, da, ma in (("gate", 1, 2), ("up", 1, 2), ("down", 2, 1))}
+            rows0 = xb.shape[0]
+            y_q = moe._forward_local({"router": full["router"], **deq}, nodrop,
+                                     x[None, :rows0])[0][0]
+            rep["moe_fp32_int8_err"] = float(
+                (ys["fp32_int8"][:rows0] - y_q).abs().max() / y_q.abs().max())
+            del deq, y_q
+            _, gall, _ = moe._route(full, base, x)
+            rep["moe_cap_local"] = moe.capacity(base, n)
+            over = torch.bincount(gall.reshape(-1).long(), minlength=E) - rep["moe_cap_local"]
+            rep["moe_drop_local"] = int(over.clamp(min=0).sum())
+            auxes = [moe._route(full, base, x[i * rows0:(i + 1) * rows0])[2]
+                     for i in range(mesh.sizes[0])]
+            rep["moe_aux_ref"] = float(torch.stack(auxes).mean())
+    del out, ys, p32, p16
+    torch.cuda.empty_cache()
+
+
+def _dequantized_row(W, da: int, ma: int, i: int, D: int, M: int):
+    """An expert weight as data row ``i`` of a (D, M) mesh uses it after the
+    int8 gather: for each model slice, every data block's int8 values
+    dequantized with the scales of row ``i``'s own block."""
+    import torch
+
+    from repro_torch.models import moe
+
+    out = []
+    for wj in W.chunk(M, ma):
+        blocks = wj.chunk(D, da)
+        q = torch.cat([moe.quantize(b, (1, 2))[0] for b in blocks], da)
+        out.append(q.float() * moe.quantize(blocks[i], (1, 2))[1])
+    return torch.cat(out, ma)
+
+
+def _collective_ranks(mesh, join_path):
+    """Phase 21 on one rank of the (data, model) mesh: every arm in turn,
+    then the launch counts of K1-K4 (none of these paths reaches them)."""
+    import torch
+
+    from repro_torch.kernels import bucket_dedup, hash_mix, nested_join, scan_join
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rep = {"rank": torch.distributed.get_rank(), "backend": torch.distributed.get_backend(),
+           "position": tuple(mesh.axis_index(a) for a in mesh.axis_names)}
+    t0 = time.perf_counter()
+    for name, part in (("shuffle", lambda: _coll_shuffle(mesh, rep, join_path)),
+                       ("wide_deep", lambda: _coll_wide_deep(mesh, rep)),
+                       ("vocab", lambda: _coll_vocab(mesh, rep)),
+                       ("moe", lambda: _coll_moe(mesh, rep))):
+        t = time.perf_counter()
+        if COLL_DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        part()
+        rep[f"{name}_s"] = time.perf_counter() - t
+        rep[f"{name}_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                  if COLL_DEVICE == "cuda" else 0.0)
+    rep["ranks_s"] = time.perf_counter() - t0
+    rep["launches"] = {m.__name__.rsplit(".", 1)[1]: m.launches
+                       for m in (hash_mix, bucket_dedup, nested_join, scan_join)}
+    return rep
+
+
+def phase_collectives(join_path, pjtt_digest):
+    """Phase 21: the collectives across ranks, 4 spawned ranks of a (2, 2)
+    ``ProcessMesh`` on the one card (``launch.mesh.run_ranks``): the shuffle
+    PTT and the PJTT/probe, Wide & Deep, the vocab-parallel table and the
+    MoE arms at full width (each part's checks in its rank function)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.launch.mesh import run_ranks, transport
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    world, cards = math.prod(COLL_MESH), torch.cuda.device_count()
+    backend = transport(world, COLL_DEVICE)
+    free = torch.cuda.mem_get_info()[0] if COLL_DEVICE == "cuda" else 0
+    how = {"nccl": "one rank a card", "gloo": "ranks share a card: gloo on CUDA tensors"
+           if COLL_DEVICE == "cuda" else "ranks on the CPU"}[backend]
+    log(f"ranks: world size {world}, a {COLL_MESH} (data, model) mesh, {cards} card(s), "
+        f"backend {backend} ({how}); {free / 1e9:.1f} GB free")
+    t0 = time.perf_counter()
+    reps = run_ranks(_collective_ranks, COLL_MESH, join_path, device=COLL_DEVICE,
+                     timeout=COLL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    r = reps[0]
+    check([x["rank"] for x in reps] == list(range(world)), "ranks out of order")
+    check(all(x["backend"] == backend for x in reps), f"a rank's backend is not {backend}")
+    check([x["position"] for x in reps] == [(d, m) for d in range(COLL_MESH[0])
+                                           for m in range(COLL_MESH[1])],
+          f"rank positions {[x['position'] for x in reps]} are not row-major")
+    log(f"ranks up and done in {wall:.1f} s wall (the arms {r['ranks_s']:.1f} s on rank 0: "
+        f"shuffle {r['shuffle_s']:.1f}, Wide & Deep {r['wide_deep_s']:.1f}, vocab "
+        f"{r['vocab_s']:.1f}, MoE {r['moe_s']:.1f}; the rest is spawning ranks and CUDA "
+        f"contexts); rank 0's peaks GB: " + ", ".join(
+            f"{p} {r[p + '_peak_gb']:.2f}" for p in ("shuffle", "wide_deep", "vocab", "moe")))
+    check(not r["shuffle_ovf"] and r["n_new"] == r["n_distinct"],
+          f"shuffle: is_new {r['n_new']} against {r['n_distinct']} distinct valid keys, "
+          f"overflow {r['shuffle_ovf']}")
+    check(r["shuffle_equal_stacked"], "shuffle: the ranks' tables, is_new or flag differ "
+          "from the stacked arm's at n_shards = 4")
+    log(f"shuffle over {world} ranks: {COLL_KEYS} mix64 keys (75% duplicates), 2^22 slots a "
+        f"rank (tables {r['table_bytes'] / 1e6:.0f} MB, keys {COLL_KEYS * 8 / 1e6:.0f} MB): "
+        f"insert {r['shuffle_ms']:.1f} ms wall (stacked arm on one process "
+        f"{r['stacked_ms']:.1f} ms); is_new {r['n_new']} = {r['n_distinct']} distinct "
+        f"(torch.unique); tables, is_new and flag equal the stacked arm's bit for bit")
+    check(not r["pjtt_ovf"] and r["pjtt_equal_stacked"],
+          "distributed PJTT over ranks: overflow, or differs from the stacked arm's")
+    check(r["rowsets_sha256"] == pjtt_digest,
+          "distributed PJTT over ranks: a child row's subjects differ from phase 14's")
+    pr, cr, K = r["join_rows"]
+    log(f"distributed PJTT over {world} ranks, 1M OJM join ({pr} parent rows, {cr} child "
+        f"rows, K={K}): build {r['build_ms']:.1f} ms, probe {r['probe_ms']:.1f} ms wall; "
+        f"skeys, ssubj, subjects and mask equal the stacked arm's; every row's subjects "
+        f"equal phase 14's")
+    for mode in ("plain", "dedup"):
+        check(r[f"wd_{mode}_ok"], f"Wide & Deep over ranks, {mode}: logits differ from the "
+              f"one-process forward (max {r[f'wd_{mode}_err']:.3g})")
+    log(f"Wide & Deep over ranks at full width (table block {r['wd_table_block']} a rank), "
+        f"serve_p99: forward p50 plain {r['wd_plain_ms']:.3f} ms, dedup_cap {r['wd_cap']} "
+        f"{r['wd_dedup_ms']:.3f} ms ({WD_COLL_TIMED} warm forwards, wall); gathered logits "
+        f"within rtol 1e-5, atol 1e-6 of the one-process forward (max |diff| plain "
+        f"{r['wd_plain_err']:.3g}, dedup {r['wd_dedup_err']:.3g})")
+    check(r["vocab_ok"], f"qwen2.5-3b vocab-parallel: embed not exact, or logits off (bf16 "
+          f"{r['vocab_err_bf16']:.3g}, fp32 {r['vocab_err_fp32']:.3g})")
+    log(f"qwen2.5-3b vocab-parallel over ranks (table block, logits block "
+        f"{r['vocab_blocks']}): embed {r['embed_ms']:.2f} ms, tied_logits "
+        f"{r['logits_ms']:.2f} ms wall (bf16); embed equal to the no-mesh take; logits max "
+        f"|diff| bf16 {r['vocab_err_bf16']:.3g} (one bf16 step of the largest allowed), "
+        f"fp32 {r['vocab_err_fp32']:.3g} (rtol 1e-5, atol 1e-6)")
+    check(all(r[f"moe_{m}_finite"] for m in ("bf16", "bf16_int8", "bf16_nodrop", "fp32",
+                                              "fp32_int8")),
+          "MoE over ranks: a non-finite output or aux")
+    check(r["moe_fp32_err"] <= MOE_RTOL and r["moe_fp32_int8_err"] <= MOE_RTOL,
+          f"MoE over ranks, fp32: against _forward_local {r['moe_fp32_err']:.3g}, int8 "
+          f"gather {r['moe_fp32_int8_err']:.3g} of the largest |y| (limit {MOE_RTOL})")
+    check(abs(r["moe_aux"] - r["moe_aux_ref"]) <= MOE_RTOL * abs(r["moe_aux_ref"]),
+          f"MoE aux {r['moe_aux']} against the data rows' mean {r['moe_aux_ref']}")
+    check(r["moe_bf16_err"] <= BF16_NORM_TOL and r["moe_int8_vs_plain_bf16"] <= INT8_NORM_TOL,
+          f"MoE bf16: {r['moe_bf16_err']:.3g} from _forward_local in bf16, int8 gather "
+          f"{r['moe_int8_vs_plain_bf16']:.3g} from the plain gather")
+    d, f, E, k = r["moe_dims"]
+    log(f"mixtral-8x7b MoE layer over ranks (d {d}, f {f}, {E} experts, top-{k}, "
+        f"{LM_TOKENS[0] * LM_TOKENS[1]} tokens): bf16 {r['moe_bf16_ms']:.2f} ms, int8 gather "
+        f"{r['moe_bf16_int8_ms']:.2f} ms wall; fp32 at capacity_factor E/k = 4 (cap n+1, no "
+        f"drop) within {r['moe_fp32_err']:.3g} of _forward_local's largest |y|, the int8 "
+        f"gather within {r['moe_fp32_int8_err']:.3g} of _forward_local on its dequantized "
+        f"weights; aux {r['moe_aux']:.6f} = the data rows' mean; bf16 at no drop "
+        f"{r['moe_bf16_err']:.3g} from _forward_local in bf16, the int8 gather "
+        f"{r['moe_int8_vs_plain_bf16']:.3g} from the plain one (normwise); at 1.25 the ranks drop "
+        f"{r['moe_drop_sharded']} (token, expert) pairs (cap {r['moe_cap_sharded']} on "
+        f"{r['moe_local_tokens']} local tokens), the local arm {r['moe_drop_local']} (cap "
+        f"{r['moe_cap_local']})")
+    launches = {name: sum(x["launches"][name] for x in reps) for name in reps[0]["launches"]}
+    check(not any(launches.values()), f"the collectives phase launched K1-K4: {launches}")
+    log(f"launches of K1-K4 in the collectives phase (all ranks): {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3375,7 +3840,7 @@ def main() -> int:
         phase_recsys()
         log(f"phase 14: the distributed PTT/PJTT, {DIST_SHARDS} shards on the card "
             f"(+{time.perf_counter() - T0:.1f} s)")
-        phase_distributed(beds)
+        join_path, pjtt_digest = phase_distributed(beds)
         log(f"phase 15: the benchmark runner's dedup, live and shard sections "
             f"(+{time.perf_counter() - T0:.1f} s)")
         mods["scan_join"] = scan_join
@@ -3393,6 +3858,9 @@ def main() -> int:
         phase_gnn(mods)
         log(f"phase 20: the dry-run against real runs (+{time.perf_counter() - T0:.1f} s)")
         phase_dryrun(mods)
+        log(f"phase 21: collectives across ranks, {COLL_MESH} ranks on the card "
+            f"(+{time.perf_counter() - T0:.1f} s)")
+        phase_collectives(join_path, pjtt_digest)
         log(f"phases done (+{time.perf_counter() - T0:.1f} s)")
     except Exception as e:  # every phase's failure ends the run here
         traceback.print_exc()

@@ -13,14 +13,16 @@ their roofline terms side by side in ``results/torch/hillclimb.json``.
 The LM variants are costed as JAX costs them: unrolled L=1 and L=2 traces
 extrapolated to the whole depth (``launch.dryrun._extrapolate``); their
 per-device argument bytes come from the whole-depth specs.
-``moe_quant_gather`` acts only inside JAX's ``moe._forward_sharded`` (the
-gathers across cards), which waits for more than one card, so the two
-dbrx variants trace alike and the output says so.  The two command-r
+``moe_quant_gather`` acts only in the expert gathers of
+``moe._forward_sharded``, the arm that runs on a mesh of ranks
+(``launch.mesh.ProcessMesh`` under ``sharding.set_mesh``); a trace runs in
+one process with no such mesh active and takes ``_forward_local``, so the
+two dbrx variants trace alike and the output says so.  The two command-r
 layouts split the weights differently but hold the same weight bytes a
 device, leaf for leaf; the serve layout replicates the token batch where
 the baseline shards it, so the argument bytes a device differ only by
-those tokens.  What the serve layout changes is the collectives across
-cards, which wait for more than one card.
+those tokens.  What the serve layout changes is the collectives, which the
+dry-run does not count.
 Wide & Deep's dedup runs on the whole batch here (one device), where JAX's
 cap of 40,960 is a data shard's.
 
@@ -42,9 +44,10 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 
 RESULTS = roofline.RESULTS
-QUANT_NOTE = ("moe_quant_gather acts only in JAX's moe._forward_sharded, the expert "
-              "gathers across cards, which wait for more than one card: both variants "
-              "trace alike")
+QUANT_NOTE = ("moe_quant_gather acts only in moe._forward_sharded's expert gathers, on a "
+              "mesh of ranks (launch.mesh.ProcessMesh under sharding.set_mesh); this trace "
+              "runs in one process with no such mesh and takes _forward_local: both "
+              "variants trace alike")
 
 
 def _record(cost: dict, arg_bytes: int, mesh, method: str) -> dict:

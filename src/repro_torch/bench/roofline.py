@@ -28,7 +28,7 @@ import os
 
 PEAK_FLOPS = 989e12   # bf16 dense, one H100 SXM
 HBM_BW = 3.35e12      # B/s
-LINK_BW = None        # no collectives are recorded (more than one card)
+LINK_BW = None        # no collectives are recorded (the dry-run does not count them)
 
 RESULTS = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "..",
                                        "results", "torch"))

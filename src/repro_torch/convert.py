@@ -9,9 +9,10 @@ both packages on one triple store without going through a file.
 ``state_from_params`` turns a JAX model's params (a nested dict of numpy
 arrays, e.g. Wide & Deep's or an LM's) into the state dict of the port's
 module, and ``kv_cache_from_numpy`` a JAX decode cache into the port's, so
-a decode that JAX began continues in the port.  bfloat16 arrays (numpy's
-``ml_dtypes`` type, as ``np.asarray`` gives a JAX bf16 array) keep their
-bits.
+a decode that JAX began continues in the port.  ``shard_state_from_params``
+gives one rank of a ``ProcessMesh`` its blocks of such params by their
+partition specs.  bfloat16 arrays (numpy's ``ml_dtypes`` type, as
+``np.asarray`` gives a JAX bf16 array) keep their bits.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core.hashset import HashSet
 from repro_torch.core.pjtt import PJTTHash, PJTTSorted
 from repro_torch.kernels.ops import RadixTable
+from repro_torch.models import sharding
 from repro_torch.models.layers import flatten
 
 
@@ -101,6 +103,20 @@ def state_from_params(params, device="cuda") -> dict:
     dict keyed ``"mlp.fc0.w"`` or ``"blocks.0.attn.q.w"``, as the port's
     modules name their parameters; load it with ``module.load_state_dict``."""
     return {k: _tensor(v, device) for k, v in flatten(params).items()}
+
+
+def shard_state_from_params(params, specs, mesh, device="cuda") -> dict:
+    """``state_from_params`` for one rank of ``mesh``: each leaf's block by
+    its partition spec (``specs`` a tree parallel to ``params``, e.g.
+    ``recsys.param_specs(cfg)``, ``transformer.param_specs(cfg)`` or
+    ``{"table": P("model", "data")}``), taken before the copy to ``device``.
+    Leaves may be numpy arrays or tensors."""
+    specs = flatten(specs)
+    out = {}
+    for k, v in flatten(params).items():
+        t = v if isinstance(v, torch.Tensor) else _tensor(v, "cpu")
+        out[k] = sharding.local_block(t, specs[k], mesh).to(device)
+    return out
 
 
 def kv_cache_from_numpy(k, v, pos, device="cuda"):

@@ -27,9 +27,10 @@ behind them) ``flops`` is ``flops_global`` split evenly and the peak is the
 per-device args plus the trace's temporaries split evenly, both labelled.
 ``fits`` holds the peak against the card's ``total_memory`` (``--device
 cuda``) or ``--hbm-bytes`` (``--device cpu``, which has no default).
-Collectives across cards wait for more than one card, so ``collectives``
-is null with the reason; JAX's ``collective_bytes`` parses XLA's HLO text
-and has no counterpart.
+A trace runs in one process with no mesh of ranks active, so the
+collectives of the shard_map arms are not traced and ``collectives`` is
+null with the reason; JAX's ``collective_bytes`` parses XLA's HLO text,
+and counting the port's is a design of its own, not made yet.
 
 ``rdfizer/shuffle_dedup`` (``--extra``) syncs with the host in its probe
 loop, so it is run for real on ``--device``: its time, peak (on a card) and
@@ -66,8 +67,8 @@ from repro_torch.train.tree import leaves
 
 RESULTS = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "..",
                                        "results", "torch"))
-NO_COLLECTIVES = ("collectives across cards wait for more than one card: the port runs "
-                  "in one process")
+NO_COLLECTIVES = ("collectives not counted: a trace runs in one process with no mesh of "
+                  "ranks, and the port has no counterpart of JAX's collective_bytes yet")
 
 
 # gathers read as many rows of their source as they write, not all of it

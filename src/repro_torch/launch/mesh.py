@@ -1,17 +1,34 @@
-"""Mesh definitions: JAX's production layouts, and the cards at hand.
+"""Mesh definitions: JAX's production layouts, the cards at hand, and
+meshes of ranks.
 
 The counterpart of ``repro.launch.mesh``.  A ``Mesh`` here is a named grid
 of devices used for accounting: the dry-run (``launch.dryrun``) reads
-per-device shapes off it through ``models.sharding.local_shape``.  The
-port runs in one process, so nothing is placed on a mesh.  Importing this
-module touches no device; ``make_local_mesh`` reads the card count when it
-is called.
+per-device shapes off it through ``models.sharding.local_shape``.  A
+``ProcessMesh`` is a ``("data", "model")`` grid of ranks, one process
+each, over ``torch.distributed`` process groups: the shard_map arms run on
+it (``models.sharding.set_mesh``), and ``run_ranks`` spawns its processes.
+Both have ``axis_names``, ``shape`` and ``size``, so ``local_shape`` reads
+either.  Importing this module touches no device and starts no process.
+
+The transport is chosen from the layout before any process group starts:
+one rank a card runs NCCL; ranks that share a card run gloo on CUDA
+tensors (the tensors stay on the card, and gloo stages each exchange
+through the host); ranks on the CPU run gloo.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import logging
 import math
+import os
+import signal
+import tempfile
+import time
+import traceback
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,3 +69,136 @@ def make_local_mesh(n_devices: int | None = None, model: int = 1) -> Mesh:
         if n_devices == 0:
             raise RuntimeError("no CUDA card: pass n_devices for a mesh without one")
     return Mesh(("data", "model"), (n_devices // model, model))
+
+
+AXES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh(Mesh):
+    """This rank's view of a ``("data", "model")`` mesh of ranks (one
+    process each) over the default process group, which must already be up
+    (``run_ranks`` starts it); ``init`` builds it.  Ranks are numbered
+    row-major over the axes, as JAX linearizes a device's mesh position:
+    the rank at ``(d, m)`` is ``d * sizes[1] + m``."""
+
+    device_mesh: object = dataclasses.field(default=None, compare=False, repr=False)
+
+    @classmethod
+    def init(cls, sizes, device: str = "cuda") -> ProcessMesh:
+        """This rank's mesh of ``sizes`` (data, model) ranks on ``device``."""
+        from torch.distributed.device_mesh import init_device_mesh
+
+        sizes = tuple(sizes)
+        return cls(AXES, sizes, init_device_mesh(device, sizes, mesh_dim_names=AXES))
+
+    def axis_index(self, name: str) -> int:
+        """This rank's index along axis ``name``."""
+        return self.device_mesh.get_local_rank(name)
+
+    def _names(self, axes) -> tuple:
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        if names != self.axis_names and (len(names) != 1 or names[0] not in self.axis_names):
+            raise ValueError(f"axes {axes!r}: one of {self.axis_names} or all of them in "
+                             "mesh order")
+        return names
+
+    def axis_size(self, axes) -> int:
+        """The ranks along ``axes`` (a name, or the mesh's axis tuple)."""
+        return math.prod(self.shape[a] for a in self._names(axes))
+
+    def group(self, axes):
+        """The process group of ``axes``: one axis's group, or the world for
+        the whole mesh (group ranks in axis order either way)."""
+        import torch.distributed as dist
+
+        names = self._names(axes)
+        return dist.group.WORLD if names == self.axis_names else self.device_mesh.get_group(
+            names[0])
+
+
+def transport(world: int, device: str) -> str:
+    """The process-group backend for ``world`` ranks on ``device``: NCCL
+    when every rank has a card of its own, else gloo."""
+    if device == "cpu":
+        return "gloo"
+    import torch
+
+    return "nccl" if world <= torch.cuda.device_count() else "gloo"
+
+
+def _rank_main(rank, fn, args, sizes, device, backend, store_path, out_dir, timeout):
+    import torch
+    import torch.distributed as dist
+
+    world = math.prod(sizes)
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(backend, store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=timeout))
+    try:
+        result = fn(ProcessMesh.init(sizes, device), *args)
+    except BaseException:
+        # the first rank to fail says why; its peers fail after it in a collective
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _first_failure(out_dir: str, procs) -> str | None:
+    """Why the ranks failed: a rank that exited with no traceback (its peers
+    fail after it in a collective), else the first traceback written."""
+    ended = (0, None, -signal.SIGTERM, -signal.SIGKILL)  # the last two: ended by the join
+    for r, p in enumerate(procs):
+        if p.exitcode not in ended and not os.path.exists(os.path.join(out_dir, f"rank{r}.err")):
+            return f"rank{r} exited with code {p.exitcode} and no traceback"
+    errs = sorted((e.stat().st_mtime_ns, e.name, e.path) for e in os.scandir(out_dir)
+                  if e.name.endswith(".err"))
+    if not errs:
+        return None
+    with open(errs[0][2]) as f:
+        return f"{errs[0][1].removesuffix('.err')} failed first:\n{f.read()}"
+
+
+def run_ranks(fn, sizes, *args, device: str = "cuda", timeout: float = 600.0) -> list:
+    """Run ``fn(mesh, *args)`` on a ``ProcessMesh`` of ``sizes`` (data,
+    model) ranks, each a spawned process, and return their results in rank
+    order (``fn`` and ``args`` must pickle; results are saved with
+    ``torch.save``).  The group meets through a ``FileStore`` in a fresh
+    temporary directory, so concurrent runs never share a port, and each
+    collective gives up after ``timeout`` seconds.  When a rank raises or
+    dies, the others are terminated and this raises; past ``timeout`` in
+    all, every rank is terminated and this raises ``TimeoutError``."""
+    import torch
+    import torch.multiprocessing as mp
+
+    sizes = tuple(sizes)
+    world = math.prod(sizes)
+    backend = transport(world, device)
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    log.info("run_ranks: %d ranks %s on %s, %d card(s), backend %s", world, sizes, device,
+             cards, backend)
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        ctx = mp.start_processes(
+            _rank_main, nprocs=world, join=False, start_method="spawn",
+            args=(fn, args, sizes, device, backend, os.path.join(tmp, "store"), tmp, timeout))
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    for p in ctx.processes:
+                        p.join()
+                    raise TimeoutError(f"{world} ranks still running after {timeout} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            first = _first_failure(tmp, ctx.processes)
+            if first is None:
+                raise
+            raise RuntimeError(first) from e
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), map_location="cpu",
+                           weights_only=False) for r in range(world)]

@@ -1,12 +1,24 @@
 """Mixture-of-Experts FFN with sort-based capacity-bounded dispatch.
 
 The counterpart of ``repro.models.moe``: top-k routing (mixtral 8 experts
-top-2, dbrx 16 top-4), then the single-device path, ``_forward_local``:
-sort the (token, choice) pairs by expert, scatter them into capacity
-buffers, run one batched GLU over the expert axis, gather back.  The port
-has no mesh, so ``forward`` always takes it; JAX's ``_forward_sharded``
-(local dispatch on each data shard, FSDP gathers, a psum over ``model``)
-waits for more than one card (``cfg.moe_quant_gather`` acts only there).
+top-2, dbrx 16 top-4), then one of two paths:
+
+* ``_forward_local``, with no mesh: sort the (token, choice) pairs by
+  expert, scatter them into capacity buffers, run one batched GLU over the
+  expert axis, gather back;
+* ``_forward_sharded``, which ``forward`` takes when a ``("data",
+  "model")`` ``ProcessMesh`` is active (``sharding.set_mesh``): JAX's
+  shard_map body on this rank.  The rank's tokens are dispatched locally
+  (capacity sized on the local token count), the expert weights,
+  ``gate``/``up`` ``P(None, "data", "model")`` and ``down`` ``P(None,
+  "model", "data")``, are all-gathered over ``data`` on use (int8 on the
+  wire with ``quantized_gather``), each expert runs tensor-parallel over
+  ``model`` (d_ff sharded), the row-parallel output is psum'd over
+  ``model`` and the aux loss pmean'd over the mesh.  A rank passes its
+  block of the flattened tokens (``sharding.token_spec``: split over the
+  data-parallel axes when they divide the token count, else the whole
+  stream on every rank, JAX's branch for small decode batches) and gets
+  its block of the output.  The arm is forward only.
 
 JAX's idioms, mapped: ``lax.top_k`` keeps the lower index first among
 equal probabilities, and ``torch.topk`` promises no order for ties, so the
@@ -24,7 +36,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, sharding
 
 
 class MoEConfig(NamedTuple):
@@ -33,6 +45,9 @@ class MoEConfig(NamedTuple):
     n_experts: int
     top_k: int
     capacity_factor: float = 1.25
+    # quantize the FSDP use-gather of expert weights to int8 (a scale an
+    # expert), halving the sharded path's dominant collective
+    quantized_gather: bool = False
 
 
 def init(gen: torch.Generator, cfg: MoEConfig, dtype, device="cuda", lead: tuple = ()) -> dict:
@@ -113,6 +128,49 @@ def _forward_local(p, cfg: MoEConfig, x):
     return out.reshape(b, s, d), aux
 
 
+_RECIP_127 = float(torch.tensor(1.0) / 127.0)  # fp32 1/127, as a double
+_EPS = float(torch.tensor(1e-12))  # fp32 1e-12, as a double
+
+
+def quantize(w: torch.Tensor, axes):
+    """int8 values and the fp32 scale (one an index of the other axes) of
+    JAX's wire format, ``max|w| / 127 + 1e-12``, rounded as XLA compiles it:
+    one fused multiply-add of the fp32 reciprocal of 127 (in float64, where
+    the product is exact, then rounded once to fp32)."""
+    amax = torch.amax(w.abs(), dim=axes, keepdim=True).to(torch.float64)
+    scale = (amax * _RECIP_127 + _EPS).to(torch.float32)
+    q = torch.clamp(torch.round(w.to(torch.float32) / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def fsdp_gather(w: torch.Tensor, axis: int, quantized: bool) -> torch.Tensor:
+    """The FSDP use-gather of an expert weight's blocks over ``data`` along
+    ``axis``; with ``quantized``, int8 on the wire, and (as in JAX) every
+    block gathered dequantized with this rank's scales."""
+    if not quantized:
+        return sharding.all_gather(w, "data", axis=axis)
+    q, scale = quantize(w, (1, 2))
+    return (sharding.all_gather(q, "data", axis=axis).to(torch.float32) * scale).to(w.dtype)
+
+
+def _forward_sharded(p, cfg: MoEConfig, x):
+    """JAX's shard_map body on this rank: ``x`` (..., d) the rank's tokens,
+    ``p`` its blocks of the weights (``router`` whole)."""
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    q = cfg.quantized_gather
+    gate_vals, gate_idx, aux = _route(p, cfg, xt)
+    y_partial = _dispatch_compute_combine(
+        cfg, xt, gate_vals, gate_idx, fsdp_gather(p["gate"], 1, q), fsdp_gather(p["up"], 1, q),
+        fsdp_gather(p["down"], 2, q))
+    # row-parallel combine over the d_ff shards
+    y = sharding.psum(y_partial, "model")
+    return y.reshape(x.shape), sharding.pmean(aux, sharding.active_axes())
+
+
 def forward(p, cfg: MoEConfig, x):
-    """x: (B, S, d) -> ((B, S, d), aux_loss)."""
+    """x: (B, S, d) -> ((B, S, d), aux_loss).  Takes the sharded path when a
+    ``("data", "model")`` mesh is active."""
+    if sharding.arms_active():
+        return _forward_sharded(p, cfg, x)
     return _forward_local(p, cfg, x)

@@ -20,9 +20,10 @@ tanh form.  Tied embeddings scale by ``sqrt(d_model)`` rounded to
 every model function runs the same operations over either layout, so the
 two are bit-equal with the same weights.  ``param_specs``, ``cache_specs``
 and ``batch_axes`` give JAX's partition specs (``models.sharding.P``) for
-the dry-run's accounting; sequence parallelism and the int8 expert gathers
-(``moe_quant_gather``) act only across cards, so their config fields are
-kept and change nothing here (``constrain`` is the identity with no mesh).
+the dry-run's accounting.  Sequence parallelism acts only through GSPMD,
+which the port has not, so its field is kept and changes nothing here
+(``constrain`` is the identity); the int8 expert gathers
+(``moe_quant_gather``) act in ``moe._forward_sharded`` on a mesh of ranks.
 ``cfg.remat`` rematerializes each block where grad is enabled
 (``layers.remat``, JAX's ``jax.checkpoint`` with ``nothing_saveable``):
 only a block's input is kept for the backward pass.
@@ -90,6 +91,7 @@ class LMConfig:
             d_ff=self.d_ff,
             n_experts=self.n_experts,
             top_k=self.top_k,
+            quantized_gather=self.moe_quant_gather,
         )
 
     def param_count(self) -> int:

@@ -1,22 +1,48 @@
-"""Vocab-parallel embedding and logits, in their no-mesh forms.
+"""Vocab-parallel embedding and logits (the Megatron pattern).
 
 The counterpart of ``repro.models.vocab_parallel``.  With no mesh active,
-JAX's ``embed`` is ``jnp.take(table, ids, axis=0)`` and ``tied_logits`` is
-``h @ table.T``; the port has no mesh, so these are the forms it runs.  The
-shard_map arms (the table sharded over ``model`` and ``data``, a masked
-local take and a psum) wait for more than one card.
+``embed`` is ``jnp.take(table, ids, axis=0)`` and ``tied_logits`` is
+``h @ table.T``.  With a ``("data", "model")`` ``ProcessMesh`` active
+(``sharding.set_mesh``), each runs JAX's shard_map body on this rank:
+
+  storage : table (V, d) sharded ``P("model", "data")`` — vocab over
+            ``model``, the embedding dim over ``data`` (FSDP-style)
+  embed   : all-gather the d-shards over ``data`` (a transient V/m x d
+            slice), a masked local take, a psum over ``model``
+  logits  : ``h @ slice.T`` on each model shard -> vocab-sharded logits
+
+A rank passes its block of the table and its block of the flattened token
+stream, shaped as it likes (``(..., )`` ids, ``(..., d)`` hidden), and gets
+its block of the output: rows ``(..., d)``, the same on every ``model``
+rank, and logits ``(..., V/m)``.  The token layout is JAX's
+(``sharding.token_spec``): split over the data-parallel axes when their
+product divides the token count, else replicated (tiny decode batches),
+the body the same either way.  The arms compute forward only.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import sharding
+
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """(V, d) table, (B, S) int ids -> (B, S, d)."""
-    return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[1])
+    if not sharding.arms_active():
+        return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[1])
+    full = sharding.all_gather(table, "data", axis=1)  # (V/m, d)
+    v_loc = full.shape[0]
+    local = ids - sharding.axis_index("model") * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    rows = full.index_select(0, local.clamp(0, v_loc - 1).reshape(-1))
+    rows = torch.where(ok.reshape(-1, 1), rows, 0).reshape(*ids.shape, full.shape[1])
+    return sharding.psum(rows, "model")
 
 
 def tied_logits(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """(V, d) table, (B, S, d) hidden -> (B, S, V) logits."""
-    return h @ table.T
+    """(V, d) table, (B, S, d) hidden -> (B, S, V) logits; on a mesh this
+    rank's (..., V/m) vocab slice (ready for a sharded-softmax loss)."""
+    if not sharding.arms_active():
+        return h @ table.T
+    return h @ sharding.all_gather(table, "data", axis=1).T

@@ -1,12 +1,17 @@
-"""repro_torch.core.distributed (the shuffle PTT/PJTT, shards stacked on one
-device) against repro.core.distributed on an 8-device mesh.
+"""repro_torch.core.distributed (the shuffle PTT/PJTT) against
+repro.core.distributed on an 8-device (4, 2) mesh, in both of the port's
+arms: the shards stacked on one device (``n_shards=8``), and one shard a
+rank on 8 gloo ranks of a (4, 2) ``ProcessMesh``.
 
 JAX runs in a subprocess with ``--xla_force_host_platform_device_count=8``,
 as ``tests/test_distributed.py`` does, so this process keeps one CPU device;
 it writes its inputs and outputs to an ``.npz``.  The port runs the same
-inputs with ``n_shards=8`` on the CPU.  Every comparison is bit-exact: the
-PTT words, ``is_new`` and the overflow flag after each of two batches, the
-PJTT's sorted keys and subjects, and the probe's subjects, mask and flag.
+inputs on the CPU; the ranks are spawned once for the module, run every
+case and gather their blocks (``sharding.gather_block``).  Every comparison
+is bit-exact: the PTT words, ``is_new`` and the overflow flag after each of
+two batches, the PJTT's sorted keys and subjects, and the probe's subjects,
+mask and flag.  The ranks' mesh positions are checked against JAX's once:
+every all-to-all over the mesh's axis tuple rests on them.
 """
 
 import os
@@ -19,6 +24,8 @@ import torch
 
 from repro_torch.convert import u32_numpy, u32_tensor
 from repro_torch.core import distributed, hashing, hashset
+from repro_torch.launch.mesh import run_ranks
+from repro_torch.models import sharding
 
 _SCRIPT = r"""
 import sys
@@ -69,6 +76,12 @@ pjtt("trunc", rng.integers(0, 20, 4096).astype(np.int32),
 # one parent key everywhere overflows the bins
 pjtt("pskew", np.full(4096, 3, np.int32), np.arange(4096, dtype=np.int32),
      rng.integers(0, 8, 4096).astype(np.int32), 8)
+# each device's (block, data index, model index) under P(("data", "model"))
+from repro.compat import shard_map
+pos = lambda x: jnp.stack([x[0], jax.lax.axis_index("data"), jax.lax.axis_index("model")])[None]
+out["positions"] = np.asarray(jax.jit(shard_map(
+    pos, mesh=mesh, in_specs=P(("data", "model")), out_specs=P(("data", "model")),
+    check_vma=False))(jnp.arange(8, dtype=jnp.int32)))
 np.savez(sys.argv[1], **out)
 """
 
@@ -87,6 +100,100 @@ def jax_out(tmp_path_factory):
     return dict(np.load(path))
 
 
+PTT_CASES = [("ptt", 2, 16384), ("skew", 1, 8192)]
+PJTT_CASES = [("pj", 64), ("trunc", 8), ("pskew", 8)]
+
+
+def _rank_cases(mesh, path):
+    """Every case on this rank of the (4, 2) mesh: each global input's
+    block in, the outputs' blocks gathered back (returned by rank 0; the
+    flags by every rank)."""
+    j = dict(np.load(path))
+    spec = sharding.P(mesh.axis_names)
+
+    def block(a):
+        return sharding.local_block(torch.from_numpy(np.ascontiguousarray(a)), spec, mesh)
+
+    def whole(t):
+        return sharding.gather_block(t, spec, mesh).numpy()
+
+    out, flags = {}, {}
+    for tag, n_batches, cap_total in PTT_CASES:
+        hi, lo = j[tag + "_hi_in"].view(np.int32), j[tag + "_lo_in"].view(np.int32)
+        table = distributed.make_sharded_ptt(mesh, cap_total, device="cpu")
+        step = hi.shape[0] // n_batches
+        for b in range(n_batches):
+            sl = slice(b * step, (b + 1) * step)
+            table, is_new, ovf = distributed.distributed_insert(
+                mesh, table, block(hi[sl]), block(lo[sl]), block(j[tag + "_valid"][sl]))
+            out[f"{tag}_t{b}_hi"], out[f"{tag}_t{b}_lo"] = whole(table.hi), whole(table.lo)
+            out[f"{tag}_t{b}_is_new"], flags[f"{tag}_t{b}_ovf"] = whole(is_new), bool(ovf)
+    for tag, K in PJTT_CASES:
+        idx, ovf = distributed.build_distributed_pjtt(
+            mesh, block(j[tag + "_pk"]), block(j[tag + "_ps"]))
+        out[tag + "_skeys"], out[tag + "_ssubj"] = whole(idx.skeys), whole(idx.ssubj)
+        flags[tag + "_build_ovf"] = bool(ovf)
+        subs, valid, ovf = distributed.distributed_ojm_probe(mesh, idx, block(j[tag + "_ck"]), K)
+        out[tag + "_subs"], out[tag + "_pvalid"] = whole(subs), whole(valid)
+        flags[tag + "_probe_ovf"] = bool(ovf)
+    me = torch.tensor([[int(block(np.arange(S, dtype=np.int32))[0]), mesh.axis_index("data"),
+                        mesh.axis_index("model")]], dtype=torch.int32)
+    out["positions"] = whole(me)
+    out["rank"] = torch.distributed.get_rank()
+    return {"out": out if out["rank"] == 0 else None, "flags": flags, "rank": out["rank"]}
+
+
+@pytest.fixture(scope="module")
+def rank_out(jax_out, tmp_path_factory):
+    path = tmp_path_factory.mktemp("ranks") / "inputs.npz"
+    np.savez(path, **jax_out)
+    res = run_ranks(_rank_cases, (4, 2), str(path), device="cpu", timeout=300)
+    assert [r["rank"] for r in res] == list(range(S))
+    # the flags are global: every rank holds the same
+    assert all(r["flags"] == res[0]["flags"] for r in res)
+    return {**res[0]["out"], **res[0]["flags"]}
+
+
+def test_rank_positions_equal_jax(jax_out, rank_out):
+    """Rank r sits at JAX's row-major mesh position of the device holding
+    block r of ``P(("data", "model"))``."""
+    np.testing.assert_array_equal(rank_out["positions"], jax_out["positions"])
+    np.testing.assert_array_equal(rank_out["positions"][:, 0], np.arange(S))
+
+
+@pytest.mark.parametrize("tag,n_batches,cap_total", PTT_CASES)
+def test_rank_ptt_bit_equal_jax_and_stacked(jax_out, rank_out, tag, n_batches, cap_total):
+    j, r = jax_out, rank_out
+    hi, lo = u32_tensor(j[tag + "_hi_in"], "cpu"), u32_tensor(j[tag + "_lo_in"], "cpu")
+    valid = _bool(j[tag + "_valid"])
+    table = distributed.make_sharded_ptt(S, cap_total, device="cpu")
+    step = hi.shape[0] // n_batches
+    for b in range(n_batches):
+        sl = slice(b * step, (b + 1) * step)
+        table, is_new, ovf = distributed.distributed_insert(S, table, hi[sl], lo[sl], valid[sl])
+        for key, stacked in (("hi", u32_numpy(table.hi)), ("lo", u32_numpy(table.lo))):
+            got = r[f"{tag}_t{b}_{key}"].view(np.uint32)
+            np.testing.assert_array_equal(got, j[f"{tag}_t{b}_{key}"])
+            np.testing.assert_array_equal(got, stacked)
+        np.testing.assert_array_equal(r[f"{tag}_t{b}_is_new"], j[f"{tag}_t{b}_is_new"])
+        np.testing.assert_array_equal(r[f"{tag}_t{b}_is_new"], is_new.numpy())
+        assert r[f"{tag}_t{b}_ovf"] == bool(j[f"{tag}_t{b}_ovf"]) == bool(ovf)
+    assert r[f"{tag}_t{n_batches - 1}_ovf"] == (tag == "skew")
+
+
+@pytest.mark.parametrize("tag,K", PJTT_CASES)
+def test_rank_pjtt_and_probe_bit_equal_jax_and_stacked(jax_out, rank_out, tag, K):
+    j, r = jax_out, rank_out
+    idx, ovf = distributed.build_distributed_pjtt(S, _i32(j[tag + "_pk"]), _i32(j[tag + "_ps"]))
+    subs, valid, povf = distributed.distributed_ojm_probe(S, idx, _i32(j[tag + "_ck"]), K)
+    for key, stacked in (("skeys", idx.skeys), ("ssubj", idx.ssubj), ("subs", subs),
+                         ("pvalid", valid)):
+        np.testing.assert_array_equal(r[tag + "_" + key], j[tag + "_" + key])
+        np.testing.assert_array_equal(r[tag + "_" + key], stacked.numpy())
+    assert r[tag + "_build_ovf"] == bool(j[tag + "_build_ovf"]) == bool(ovf) == (tag == "pskew")
+    assert r[tag + "_probe_ovf"] == bool(j[tag + "_probe_ovf"]) == bool(povf) == (tag != "pj")
+
+
 def _bool(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, bool).copy())
 
@@ -95,7 +202,7 @@ def _i32(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.int32).copy())
 
 
-@pytest.mark.parametrize("tag,n_batches,cap_total", [("ptt", 2, 16384), ("skew", 1, 8192)])
+@pytest.mark.parametrize("tag,n_batches,cap_total", PTT_CASES)
 def test_sharded_ptt_bit_equal(jax_out, tag, n_batches, cap_total):
     j = jax_out
     hi, lo = u32_tensor(j[tag + "_hi_in"], "cpu"), u32_tensor(j[tag + "_lo_in"], "cpu")
@@ -126,7 +233,7 @@ def test_sharded_ptt_matches_first_occurrence(jax_out):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-@pytest.mark.parametrize("tag,K", [("pj", 64), ("trunc", 8), ("pskew", 8)])
+@pytest.mark.parametrize("tag,K", PJTT_CASES)
 def test_sharded_pjtt_and_probe_bit_equal(jax_out, tag, K):
     j = jax_out
     idx, ovf = distributed.build_distributed_pjtt(S, _i32(j[tag + "_pk"]), _i32(j[tag + "_ps"]))

@@ -451,7 +451,7 @@ def test_run_cell_accounts_per_device():
     # the tables split 16 ways on the vocab axis, the MLP whole
     assert pod["memory"]["argument_size_in_bytes"] < args / 15
     assert local["fits"] and local["memory"]["peak_bytes"] >= args
-    assert local["collectives"] is None and "more than one card" in local["collectives_reason"]
+    assert local["collectives"] is None and "not counted" in local["collectives_reason"]
     assert dryrun.run_cell("qwen2.5-3b", "long_500k", LOCAL, "local", hbm_bytes=hbm) == {
         "status": "skipped", "reason": registry.get_arch("qwen2.5-3b").skips["long_500k"]}
 
