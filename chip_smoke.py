@@ -142,7 +142,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      ``rdfizer/shuffle_dedup`` run for real, 2^24 keys over the single-pod
      mesh's 256 shards stacked on the card (2^22 slots each), its ``is_new``
      count equal to a ``torch.unique`` count of the valid keys; qwen2.5-3b
-     ``decode_32k`` traced, which does not fit one card; no K1-K4 launch;
+     ``decode_32k`` traced, which does not fit one card; each cell's
+     collectives a device (the sharded trace over a fake process group, JAX's
+     byte rule) and their link term printed on the local and 16x16 meshes;
+     no K1-K4 launch;
  21. collectives across ranks (``phase_collectives``): 4 spawned ranks of a
      (2, 2) ``ProcessMesh`` on the one card (``launch.mesh.run_ranks``; gloo
      on CUDA tensors, the ranks sharing the card; backend, world size and
@@ -156,7 +159,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      (rtol 1e-5, atol 1e-6); qwen2.5-3b's 151,936 x 2,048 table through
      ``embed`` (exact) and ``tied_logits``; one mixtral-8x7b MoE layer in
      bf16, plain and with the int8 gather, and in fp32 at a capacity that
-     drops no token against ``_forward_local``; no K1-K4 launch;
+     drops no token against ``_forward_local``; each arm's live collectives
+     on every rank (the dry-run's counter) equal to its sharded trace's on a
+     (2, 2) accounting mesh, kinds, counts and bytes; no K1-K4 launch;
  22. print the kernels line (one JSON object, all four kernels), the card
      line, and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -441,6 +446,7 @@ def phase_dryrun(kernel_mods):
         check(all(bool(torch.isfinite(t).all()) for t in leaves(out)
                   if isinstance(t, torch.Tensor) and t.is_floating_point()),
               f"{cell}: a non-finite output")
+        log_collectives(cell, "local", res)
         log(f"dry-run {cell}: flops {res['flops_global']:.6e} (traced) = {flops:.6e} (run), "
             f"bytes accessed {res['bytes_accessed_global']:.4e}, peak traced {traced / 1e9:.4f}"
             f" GB against the card's {peak / 1e9:.4f} GB ({rel:.3%}; args "
@@ -450,8 +456,11 @@ def phase_dryrun(kernel_mods):
         torch.cuda.empty_cache()
 
     pod = make_production_mesh()
+    for cell in DRYRUN_CELLS:
+        log_collectives(cell, "single_pod_16x16", dryrun.cell_collectives(*cell.split("/"), pod))
     spec = registry.build_extra_cells(pod, device=CARD, fake=False)[0]
     res = dryrun.run_extra(spec, pod, "single_pod_16x16")
+    log_collectives("rdfizer/shuffle_dedup", "single_pod_16x16", res)
     del spec
     torch.cuda.empty_cache()
     check(res["n_new"] == res["n_distinct"] and not res["overflow"],
@@ -465,12 +474,29 @@ def phase_dryrun(kernel_mods):
                           hbm_bytes=hbm)
     check(res["status"] == "ok" and not res["fits"],
           f"qwen2.5-3b/decode_32k: expected not to fit one card at batch 128: {res}")
+    log_collectives("qwen2.5-3b/decode_32k", "local", res)
+    log_collectives("qwen2.5-3b/decode_32k", "single_pod_16x16",
+                    dryrun.cell_collectives("qwen2.5-3b", "decode_32k", pod))
     log(f"dry-run qwen2.5-3b/decode_32k (batch 128, 32,768 slots): fits {res['fits']}, peak "
         f"{res['memory']['peak_bytes'] / 1e9:.3f} GB (args "
         f"{res['memory']['argument_size_in_bytes'] / 1e9:.3f} GB) against "
         f"{hbm / 1e9:.3f} GB, flops {res['flops_global']:.4e}, trace {res['trace_s']:.3f} s")
     launches = counts(kernel_mods)
     check(not any(launches.values()), f"the dry-run phase launched K1-K4: {launches}")
+
+
+def log_collectives(cell: str, mesh_name: str, res: dict) -> None:
+    """A dry-run record's collectives a device and their link term."""
+    from repro_torch.bench.roofline import LINK_BW
+
+    coll = res["collectives"]
+    check(coll is not None and set(coll) >= {"bytes_by_kind", "counts", "total_bytes"},
+          f"{cell}@{mesh_name}: no collectives record")
+    kinds = ", ".join(f"{k} {coll['counts'][k]} x {coll['bytes_by_kind'][k]:,} B"
+                      for k in sorted(coll["counts"])) or "none"
+    log(f"dry-run {cell}@{mesh_name} collectives a device: {kinds}; total "
+        f"{coll['total_bytes']:,} B, t_collective {coll['total_bytes'] / LINK_BW:.6e} s at "
+        f"{LINK_BW / 1e9:.0f} GB/s (replicated for {res['replicated_for'] or 'no op'})")
 
 
 def phase_device():
@@ -3386,6 +3412,18 @@ def _norm_err(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def _counted(rep, name, fn):
+    """``fn()`` under the dry-run's collective counter: the arm's live
+    collectives on this rank, by JAX's rule, into ``rep``."""
+    from repro_torch.launch.dryrun import Collectives
+
+    with Collectives() as counter:
+        out = fn()
+    _sync()
+    rep.setdefault("live_collectives", {})[name] = counter.record()
+    return out
+
+
 def _coll_shuffle(mesh, rep, join_path):
     """The shuffle as rdfizer/shuffle_dedup on a 4-device mesh, the PJTT and
     the probe over the 1M OJM join, on this rank; rank 0 holds the gathered
@@ -3407,6 +3445,8 @@ def _coll_shuffle(mesh, rep, join_path):
     (table, is_new, ovf), ms = _ranks_wall(lambda: D.distributed_insert(
         mesh, D.ShardedPTT(blocks[0], blocks[1]), *blocks[2:]))
     rep["shuffle_ms"], rep["shuffle_ovf"] = ms, bool(ovf)
+    _counted(rep, "shuffle", lambda: D.distributed_insert(
+        mesh, D.ShardedPTT(blocks[0], blocks[1]), *blocks[2:]))
     rep["table_bytes"] = 2 * thi.numel() * 4
     got = [sharding.gather_block(x, spec, mesh) for x in (table.hi, table.lo, is_new)]
     del blocks, table
@@ -3486,7 +3526,7 @@ def _coll_wide_deep(mesh, rep):
     with torch.inference_mode(), sharding.set_mesh(mesh):
         for mode, c in {"plain": cfg, "dedup": dataclasses.replace(cfg, dedup_cap=cap)}.items():
             model.cfg = c
-            out = model(sp_b, de_b)
+            out = _counted(rep, f"wide_deep_{mode}", lambda: model(sp_b, de_b))
             times = [_ranks_wall(lambda: model(sp_b, de_b))[1] for _ in range(WD_COLL_TIMED)]
             logits[mode] = sharding.gather_block(out, bs, mesh)
             rep[f"wd_{mode}_ms"] = statistics.median(times)
@@ -3527,6 +3567,8 @@ def _coll_vocab(mesh, rep):
     tb, ids_b, h_b = (sharding.local_block(x, s, mesh) for x, s in
                       ((table, tspec), (ids, ts), (h, ts)))
     with sharding.set_mesh(mesh):
+        _counted(rep, "embed", lambda: vocab_parallel.embed(tb, ids_b))
+        _counted(rep, "tied_logits", lambda: vocab_parallel.tied_logits(tb, h_b))
         rows, rep["embed_ms"] = _ranks_wall(lambda: vocab_parallel.embed(tb, ids_b))
         logits, rep["logits_ms"] = _ranks_wall(lambda: vocab_parallel.tied_logits(tb, h_b))
         logits32 = vocab_parallel.tied_logits(tb.float(), h_b.float())
@@ -3590,6 +3632,8 @@ def _coll_moe(mesh, rep):
                 ("bf16_nodrop", nodrop, p16, x16),
                 ("fp32", nodrop, p32, xb),
                 ("fp32_int8", nodrop._replace(quantized_gather=True), p32, xb)):
+            if name in ("bf16", "bf16_int8"):
+                _counted(rep, f"moe_{name}", lambda: moe.forward(p, cfg, xin))
             (y, aux), ms = _ranks_wall(lambda: moe.forward(p, cfg, xin))
             out[name] = (y, aux)
             rep[f"moe_{name}_ms"] = ms
@@ -3680,6 +3724,65 @@ def _collective_ranks(mesh, join_path):
     rep["launches"] = {m.__name__.rsplit(".", 1)[1]: m.launches
                        for m in (hash_mix, bucket_dedup, nested_join, scan_join)}
     return rep
+
+
+def _traced_arms(wd_cap: int) -> dict:
+    """Each phase-21 arm's collectives as the dry-run counts them: rank 0's
+    program on a (2, 2) accounting mesh over a fake process group, fake
+    args at the ranks' global shapes laid out by JAX's specs
+    (``launch.dryrun.sharded_collectives``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import cells, mixtral_8x7b, qwen2_5_3b, wide_deep
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe, sharding, vocab_parallel
+    from repro_torch.models.sharding import P
+
+    acct = Mesh(("data", "model"), COLL_MESH)
+    axes = acct.axis_names
+
+    def arm(fn, shapes, specs):
+        def build():
+            with cells._Draw("cpu", True, 0, dynamic=True):
+                args = tuple(torch.zeros(sh, dtype=dt) for sh, dt in shapes)
+            return cells.CellSpec(name="arm", kind="arm", fn=fn, args=args, specs=specs)
+        return build
+
+    def shuffle(thi, tlo, hi, lo, v):
+        blocks = [sharding.enter(x, P(axes)) for x in (thi, tlo, hi, lo, v)]
+        return D.distributed_insert(sharding.current_mesh(), D.ShardedPTT(*blocks[:2]),
+                                    *blocks[2:])[1]
+
+    n_shards, i32 = acct.size, torch.int32
+    builds = {"shuffle": arm(shuffle, [((n_shards, 1 << 22), i32), ((n_shards, 1 << 22), i32),
+                                       ((COLL_KEYS,), i32), ((COLL_KEYS,), i32),
+                                       ((COLL_KEYS,), torch.bool)], (P(axes),) * 5)}
+    wd, B = wide_deep.config(), RECSYS_SHAPES["serve_p99"]
+    for mode, c in {"plain": wd, "dedup": dataclasses.replace(wd, dedup_cap=wd_cap)}.items():
+        builds[f"wide_deep_{mode}"] = lambda c=c: cells.recsys_serve_cell(c, acct, B,
+                                                                           "serve_p99")
+    q, n = qwen2_5_3b.config(), LM_TOKENS[0] * LM_TOKENS[1]
+    ts, bf16 = sharding.token_spec(n, acct), torch.bfloat16
+    builds["embed"] = arm(vocab_parallel.embed, [((q.vocab, q.d_model), bf16), ((n,), i32)],
+                          (P("model", "data"), ts))
+    builds["tied_logits"] = arm(vocab_parallel.tied_logits, [
+        ((q.vocab, q.d_model), bf16), ((n, q.d_model), bf16)],
+        (P("model", "data"), P(ts[0], None)))
+    base = mixtral_8x7b.config().moe_cfg
+    E, d, f = base.n_experts, base.d_model, base.d_ff
+    for name, cfg in (("bf16", base), ("bf16_int8", base._replace(quantized_gather=True))):
+        def layer(r, u, g, dn, x, cfg=cfg):
+            return moe.forward({"router": {"w": r}, "up": u, "gate": g, "down": dn}, cfg, x)
+
+        builds[f"moe_{name}"] = arm(layer, [
+            ((d, E), torch.float32), ((E, d, f), bf16), ((E, d, f), bf16), ((E, f, d), bf16),
+            ((n, d), bf16)], (P(None, None), *moe.SHARDED_SPECS.values(), P(ts[0], None)))
+    return {name: dryrun.sharded_collectives(b, acct) for name, b in builds.items()}
 
 
 def phase_collectives(join_path, pjtt_digest):
@@ -3775,6 +3878,20 @@ def phase_collectives(join_path, pjtt_digest):
         f"{r['moe_drop_sharded']} (token, expert) pairs (cap {r['moe_cap_sharded']} on "
         f"{r['moe_local_tokens']} local tokens), the local arm {r['moe_drop_local']} (cap "
         f"{r['moe_cap_local']})")
+    t0 = time.perf_counter()
+    traced = _traced_arms(r["wd_cap"])
+    trace_s = time.perf_counter() - t0
+    for name, want in traced.items():
+        check(want.pop("replicated_for") == {}, f"{name}: the sharded trace replicated an op")
+        for x in reps:
+            got = x["live_collectives"][name]
+            check(got == want, f"{name}: rank {x['rank']}'s live collectives {got} against "
+                  f"the sharded trace's {want} on a {COLL_MESH} accounting mesh")
+        log(f"collectives of {name}, live on each of the {world} ranks = traced on a "
+            f"{COLL_MESH} accounting mesh: " + ", ".join(
+                f"{k} {want['counts'][k]} x, {want['bytes_by_kind'][k]:,} B"
+                for k in sorted(want["counts"])))
+    log(f"the sharded traces of the {len(traced)} arms took {trace_s:.1f} s on the host")
     launches = {name: sum(x["launches"][name] for x in reps) for name in reps[0]["launches"]}
     check(not any(launches.values()), f"the collectives phase launched K1-K4: {launches}")
     log(f"launches of K1-K4 in the collectives phase (all ranks): {launches}")

@@ -12,19 +12,20 @@ their roofline terms side by side in ``results/torch/hillclimb.json``.
 
 The LM variants are costed as JAX costs them: unrolled L=1 and L=2 traces
 extrapolated to the whole depth (``launch.dryrun._extrapolate``); their
-per-device argument bytes come from the whole-depth specs.
-``moe_quant_gather`` acts only in the expert gathers of
-``moe._forward_sharded``, the arm that runs on a mesh of ranks
-(``launch.mesh.ProcessMesh`` under ``sharding.set_mesh``); a trace runs in
-one process with no such mesh active and takes ``_forward_local``, so the
-two dbrx variants trace alike and the output says so.  The two command-r
-layouts split the weights differently but hold the same weight bytes a
-device, leaf for leaf; the serve layout replicates the token batch where
-the baseline shards it, so the argument bytes a device differ only by
-those tokens.  What the serve layout changes is the collectives, which the
-dry-run does not count.
-Wide & Deep's dedup runs on the whole batch here (one device), where JAX's
-cap of 40,960 is a data shard's.
+per-device argument bytes come from the whole-depth specs.  Each record
+carries the collectives of one device's program (the sharded trace of
+``launch.dryrun``, extrapolated likewise for the LMs) and their term at
+the NVLink figure (``t_collective_s``).  dbrx's ``moe_quant_gather``
+acts in the expert gathers of ``moe._forward_sharded``, which the sharded
+trace runs, so its two variants differ in their all-gather bytes (int8
+on the wire).  The two command-r layouts split the weights differently
+but hold the same weight bytes a device, leaf for leaf; the serve layout
+replicates the token batch where the baseline shards it, so the argument
+bytes a device differ only by those tokens, and what the layout changes
+is the collectives.
+Wide & Deep's dedup runs on the whole batch in the flops trace (one
+device) and on each rank's ids in the sharded trace, where JAX's cap of
+40,960 is a data shard's.
 
 Every trace runs on fake tensors: nothing is allocated and nothing runs on
 a device, so no ``--device`` is asked for.
@@ -44,29 +45,37 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 
 RESULTS = roofline.RESULTS
-QUANT_NOTE = ("moe_quant_gather acts only in moe._forward_sharded's expert gathers, on a "
-              "mesh of ranks (launch.mesh.ProcessMesh under sharding.set_mesh); this trace "
-              "runs in one process with no such mesh and takes _forward_local: both "
-              "variants trace alike")
-
-
 def _record(cost: dict, arg_bytes: int, mesh, method: str) -> dict:
     n = mesh.size
     flops, moved = cost["flops"] / n, cost["bytes_accessed"] / n
+    coll = {k: cost["collectives"][k] for k in ("bytes_by_kind", "counts", "total_bytes")}
     return {
         "cost_method": method, "devices": n, "flops": flops, "flops_global": cost["flops"],
         "bytes_accessed": moved, "memory": {"argument_size_in_bytes": arg_bytes},
+        "collectives": coll,
         "t_compute_s": flops / roofline.PEAK_FLOPS, "t_memory_s": moved / roofline.HBM_BW,
-        "t_collective_s": None,
+        "t_collective_s": coll["total_bytes"] / roofline.LINK_BW,
     }
+
+
+def _costs(build, mesh) -> dict:
+    """A cell's trace and, separately, its sharded trace's collectives."""
+    return {**dryrun.trace(build()),
+            "collectives": dryrun.sharded_collectives(build, mesh)}
 
 
 def _lm(build, n_layers: int, mesh) -> dict:
     """Extrapolated costs of an LM cell, ``build(n_layers_or_None)``."""
-    c1, c2 = dryrun.trace(build(1)), dryrun.trace(build(2))
+    c1, c2 = (_costs(lambda n=n: build(n), mesh) for n in (1, 2))
     arg_bytes = dryrun._memory(build(None), [], mesh)["argument_size_in_bytes"]
     return _record(dryrun._extrapolate(c1, c2, n_layers), arg_bytes, mesh,
                    "unrolled L=1/L=2 marginal extrapolation")
+
+
+def _line(rec: dict) -> str:
+    coll = rec["collectives"]
+    return (f"flops={rec['flops']:.3e}/dev coll={coll['total_bytes']:.3e}B/dev "
+            f"{coll['bytes_by_kind']}")
 
 
 def _unrolled(cfg, n_layers):
@@ -86,8 +95,7 @@ def hc1_dbrx(mesh) -> dict:
             return cells.lm_train_cell(_unrolled(cfg, n_layers), mesh, batch=256, seq=4096)
 
         out[name] = _lm(build, cfg.n_layers, mesh)
-        print(f"  dbrx train {name}: flops={out[name]['flops']:.3e}/dev", flush=True)
-    out["note"] = QUANT_NOTE
+        print(f"  dbrx train {name}: {_line(out[name])}", flush=True)
     return out
 
 
@@ -105,8 +113,8 @@ def hc2_commandr_decode(mesh, cfg=None, batch: int = 128, ctx: int = 32768) -> d
 
         out[name] = _lm(build, cfg.n_layers, mesh)
         args = out[name]["memory"]["argument_size_in_bytes"] / (1 << 30)
-        print(f"  command-r decode {name}: flops={out[name]['flops']:.3e}/dev "
-              f"args={args:.2f}GiB/dev", flush=True)
+        print(f"  command-r decode {name}: {_line(out[name])} args={args:.2f}GiB/dev",
+              flush=True)
     return out
 
 
@@ -117,12 +125,15 @@ def hc3_widedeep(mesh, cfg=None, batch: int = 65536, cap: int = 40960) -> dict:
     base = cfg if cfg is not None else wide_deep.config()
     out = {}
     for name, dedup_cap in (("baseline", None), ("dedup_gather", cap)):
-        spec = cells.recsys_train_cell(dataclasses.replace(base, dedup_cap=dedup_cap), mesh,
-                                       batch)
-        t = dryrun.trace(spec)
-        out[name] = _record(t, dryrun._memory(spec, t["outputs"], mesh)[
+        cfg = dataclasses.replace(base, dedup_cap=dedup_cap)
+
+        def build(cfg=cfg):
+            return cells.recsys_train_cell(cfg, mesh, batch)
+
+        t = _costs(build, mesh)
+        out[name] = _record(t, dryrun._memory(build(), t["outputs"], mesh)[
             "argument_size_in_bytes"], mesh, "direct")
-        print(f"  wide-deep train {name}: flops={out[name]['flops']:.3e}/dev "
+        print(f"  wide-deep train {name}: {_line(out[name])} "
               f"bytes={out[name]['bytes_accessed']:.3e}/dev", flush=True)
     return out
 

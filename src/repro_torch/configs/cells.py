@@ -29,16 +29,17 @@ from typing import Callable
 import torch
 from torch import nn
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.fx.experimental.symbolic_shapes import ShapeEnv
 
 from repro_torch.core import distributed, hashing
-from repro_torch.models import layers, recsys, transformer
+from repro_torch.models import layers, recsys, sharding, transformer
 from repro_torch.models.gnn import common as gnn_common
 from repro_torch.models.gnn import equiformer, gat, meshgraphnet, nequip
 from repro_torch.models.recsys import WideDeep, WideDeepConfig, bce_loss
 from repro_torch.models.sharding import P
 from repro_torch.train.optimizer import AdamW
 from repro_torch.train.trainer import make_train_step
-from repro_torch.train.tree import tree_map
+from repro_torch.train.tree import leaves, tree_map
 
 GNN_FAMILIES = {
     "gat-cora": (gat, gat.GATConfig),
@@ -48,6 +49,33 @@ GNN_FAMILIES = {
 }
 
 WIDTHS = ("n_sparse", "embed_dim", "vocab_per_field", "n_dense", "mlp", "dtype")
+
+
+# the cells' optimizers, as JAX's train cells build them
+RECSYS_ADAMW = AdamW(lr=1e-3)
+LM_ADAMW = AdamW(lr=1e-4, weight_decay=0.1)
+GNN_ADAMW = AdamW(lr=1e-3)
+
+
+class ShardedAdamW(AdamW):
+    """``AdamW`` for a sharded trace (``models.sharding``), as GSPMD lays out a
+    donated update: each gradient reduced to its parameter's layout, each
+    rank updating its own blocks, and a leaf's share of the norm summed
+    over the axes the leaf is split over.  On plain tensors, ``AdamW``."""
+
+    def update(self, grads, state, params):
+        gs = [sharding.like(g, p) for g, p in zip(leaves(grads), leaves(params), strict=True)]
+        return super().update(gs, state, params)
+
+    def _leaf_sq(self, g):
+        return sharding.psum_over_shards(super()._leaf_sq(sharding.local(g)), g)
+
+    def _update_leaf(self, g, m, v, p, scale, c1, c2) -> None:
+        super()._update_leaf(*map(sharding.local, (g, m, v, p, scale, c1, c2)))
+
+
+def _sharded(opt: AdamW) -> ShardedAdamW:
+    return ShardedAdamW(**dataclasses.asdict(opt))
 
 
 def recsys_train_step(cfg: WideDeepConfig, model: WideDeep, opt: AdamW | None = None,
@@ -65,7 +93,7 @@ def recsys_train_step(cfg: WideDeepConfig, model: WideDeep, opt: AdamW | None = 
     """
     _check_widths(cfg, model.cfg, WIDTHS)
     model.cfg = cfg
-    opt = opt if opt is not None else AdamW(lr=1e-3)
+    opt = opt if opt is not None else RECSYS_ADAMW
 
     def loss(params, sparse_ids, dense_feats, labels):
         logits = torch.func.functional_call(model, params, (sparse_ids, dense_feats))
@@ -86,25 +114,26 @@ LM_WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv", "head_dim", "d_ff", "voca
 
 
 def lm_train_step(cfg: transformer.LMConfig, model: transformer.Transformer,
-                  opt: AdamW | None = None, **step_kw):
+                  opt: AdamW | None = None, dp=("data",), **step_kw):
     """-> (step, opt, params): ``lm_train_cell``'s step for ``model`` run
     under ``cfg`` (whose ``remat``, ``attn_chunk`` and ``microbatches`` it
     follows; every width must be the model's): ``AdamW(lr=1e-4,
     weight_decay=0.1)`` unless ``opt`` is given, ``grad_accum =
     cfg.microbatches`` unless ``step_kw`` says otherwise, and
-    ``transformer.loss_fn``.  With ``grad_accum > 1`` the batch has JAX's
-    layout ``(accum, B / accum, S)``.
+    ``transformer.loss_fn`` (``dp``: the batch's axes, for its constraints).
+    With ``grad_accum > 1`` the batch has JAX's layout ``(accum, B / accum,
+    S)``.
 
         step, opt, params = lm_train_step(cfg, model)
         state = opt.init(params)
         params, state, metrics = step(params, state, tokens, labels)
     """
     _check_widths(cfg, model.cfg, LM_WIDTHS)
-    opt = opt if opt is not None else AdamW(lr=1e-4, weight_decay=0.1)
+    opt = opt if opt is not None else LM_ADAMW
     step_kw.setdefault("grad_accum", cfg.microbatches)
 
     def loss(params, tokens, labels):
-        return transformer.loss_fn(cfg, layers.nest(params), tokens, labels)
+        return transformer.loss_fn(cfg, layers.nest(params), tokens, labels, dp)
 
     return make_train_step(loss, opt, **step_kw), opt, dict(model.named_parameters())
 
@@ -123,7 +152,7 @@ def gnn_train_step(arch: str, cfg, model: layers.ParamTree, opt: AdamW | None = 
     module, cls = GNN_FAMILIES[arch]
     if not isinstance(cfg, cls):
         raise ValueError(f"{arch} trains under a {cls.__name__}, not {type(cfg).__name__}")
-    opt = opt if opt is not None else AdamW(lr=1e-3)
+    opt = opt if opt is not None else GNN_ADAMW
 
     def loss(params, batch):
         return module.loss_fn(layers.nest(params), cfg, batch, n_graphs)
@@ -151,10 +180,13 @@ class _Draw:
     models' real constant tables in), or real ones drawn from ``seed`` on
     ``device``."""
 
-    def __init__(self, device, fake: bool, seed: int):
+    def __init__(self, device, fake: bool, seed: int, dynamic: bool = False):
         self.device = torch.device(device)
         self.seed = seed
-        self.mode = FakeTensorMode(allow_non_fake_inputs=True) if fake else (
+        # ``dynamic``: sizes that depend on data (a boolean mask's) become
+        # symbols instead of errors
+        shape_env = ShapeEnv() if dynamic else None
+        self.mode = FakeTensorMode(allow_non_fake_inputs=True, shape_env=shape_env) if fake else (
             contextlib.nullcontext())
         self.gen = None
 
@@ -196,7 +228,7 @@ def lm_train_cell(cfg: transformer.LMConfig, mesh, batch: int, seq: int, *,
     shape = (accum, batch // accum, seq) if accum > 1 else (batch, seq)
     with _Draw(device, fake, seed) as d:
         model = transformer.Transformer(cfg, device=d.device, seed=seed)
-        step, opt, params = lm_train_step(cfg, model)
+        step, opt, params = lm_train_step(cfg, model, _sharded(LM_ADAMW), dp=dp)
         state = opt.init(params)
         tokens, labels = d.ints(shape, cfg.vocab), d.ints(shape, cfg.vocab)
     pspecs = layers.flatten(transformer.param_specs(cfg))
@@ -214,7 +246,7 @@ def lm_prefill_cell(cfg: transformer.LMConfig, mesh, batch: int, seq: int, *,
 
     def fn(params, tokens):
         with torch.no_grad():
-            return transformer.prefill(cfg, layers.nest(params), tokens)
+            return transformer.prefill(cfg, layers.nest(params), tokens, dp)
 
     with _Draw(device, fake, seed) as d:
         params = dict(transformer.Transformer(cfg, device=d.device, seed=seed).named_parameters())
@@ -240,7 +272,7 @@ def lm_decode_cell(cfg: transformer.LMConfig, mesh, batch: int, ctx_len: int,
 
     def fn(params, cache, tokens, pos):
         with torch.no_grad():
-            return transformer.decode_step(cfg, layers.nest(params), cache, tokens, pos)
+            return transformer.decode_step(cfg, layers.nest(params), cache, tokens, pos, bdp)
 
     with _Draw(device, fake, seed) as d:
         params = dict(transformer.Transformer(cfg, device=d.device, seed=seed).named_parameters())
@@ -286,7 +318,8 @@ def gnn_train_cell(arch: str, cfg, mesh, *, n, e, d_feat, task, n_classes=0, n_g
     edge_spec = P(_dp(mesh)) if shard_edges else P()
     with _Draw(device, fake, seed) as d:
         model = gnn_common.Model(module, cfg, device=d.device, seed=seed)
-        step, opt, params = gnn_train_step(arch, cfg, model, n_graphs=n_graphs)
+        step, opt, params = gnn_train_step(arch, cfg, model, _sharded(GNN_ADAMW),
+                                           n_graphs=n_graphs)
         state = opt.init(params)
         batch = _graph_batch(d, n, e, d_feat, task, n_classes, n_graphs)
     # GNN params are whole on every device (small next to the graph)
@@ -312,7 +345,8 @@ def recsys_train_cell(cfg: WideDeepConfig, mesh, batch: int, *, device="cpu",
                       fake: bool = True, seed: int = 0) -> CellSpec:
     dp = _dp(mesh)
     with _Draw(device, fake, seed) as d:
-        step, opt, params = recsys_train_step(cfg, WideDeep(cfg, device=d.device, seed=seed))
+        step, opt, params = recsys_train_step(cfg, WideDeep(cfg, device=d.device, seed=seed),
+                                              _sharded(RECSYS_ADAMW))
         state = opt.init(params)
         sp, de = _recsys_inputs(d, cfg, batch)
         y = d.ints((batch,), 2)
@@ -383,24 +417,29 @@ def rdfizer_shuffle_cell(mesh, n_keys: int, *, device="cpu", fake: bool = True,
                          seed: int = 0) -> CellSpec:
     """The paper's own workload as a cell: one distributed shuffle-dedup step
     (PTT insert) across the whole mesh, 2^22 table slots a shard, its
-    shards stacked on one device (``core.distributed``).  Its probe loop
-    reads flags on the host, so it runs for real rather than traced.  Real
-    keys are 64-bit ``mix64`` keys of ``n_keys / 4`` distinct words (75%
-    duplicates), the table empty; words are int32 bit patterns, where JAX's
-    are uint32."""
+    shards stacked on one device (``core.distributed``); in a sharded trace
+    (``models.sharding``), the process-mesh arm on this rank's blocks.  Its
+    probe loop reads flags on the host, so it runs for real rather than
+    traced, and its fake args take sizes that depend on data as symbols.
+    Real keys are 64-bit ``mix64`` keys of ``n_keys / 4`` distinct words
+    (75% duplicates), the table empty; words are int32 bit patterns, where
+    JAX's are uint32.  The ``is_new`` count is int32, as JAX's sum."""
     axes = tuple(mesh.axis_names)
     n_shards = mesh.size
     cap = 1 << 22  # table slots a shard
-    with _Draw(device, fake, seed) as d:
+    with _Draw(device, fake, seed, dynamic=True) as d:
         thi = torch.full((n_shards, cap), hashing.EMPTY, dtype=torch.int32, device=d.device)
         tlo = torch.full((n_shards, cap), hashing.EMPTY, dtype=torch.int32, device=d.device)
         khi, klo = hashing.mix64([d.ints((n_keys,), max(n_keys // 4, 1))])
         valid = d.trues((n_keys,))
 
     def fn(thi, tlo, hi, lo, v):
+        shards = sharding.current_mesh() if sharding.is_distributed(hi) else n_shards
+        thi, tlo, hi, lo, v = (sharding.enter(x, P(axes)) for x in (thi, tlo, hi, lo, v))
         t, is_new, ovf = distributed.distributed_insert(
-            n_shards, distributed.ShardedPTT(thi, tlo), hi, lo, v)
-        return t.hi, t.lo, is_new.sum(), ovf
+            shards, distributed.ShardedPTT(thi, tlo), hi, lo, v)
+        t_hi, t_lo, is_new = (sharding.leave(x, P(axes)) for x in (t.hi, t.lo, is_new))
+        return t_hi, t_lo, is_new.sum(dtype=torch.int32), ovf
 
     return CellSpec(
         name="rdfizer/shuffle_dedup", kind="rdfizer", fn=fn,

@@ -85,7 +85,7 @@ def _insert_impl(
     done = done0.clone()
     is_new = torch.zeros(n, dtype=torch.bool, device=key_hi.device)
     rnd = 0
-    while rnd < MAX_PROBE_ROUNDS and not bool(done.all()):
+    while True:  # a first round, then one more while a key still probes
         slot = (base + rnd * step) & mask
         occ_hi, occ_lo = hi[slot], lo[slot]
         active = ~done
@@ -108,6 +108,8 @@ def _insert_impl(
         done = done | found | won | twin
         is_new = is_new | won
         rnd += 1
+        if rnd >= MAX_PROBE_ROUNDS or bool(done.all()):
+            break
     return InsertResult(
         table=HashSet(hi=hi, lo=lo), is_new=is_new, overflowed=~done.all()
     )

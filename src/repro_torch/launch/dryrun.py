@@ -27,14 +27,29 @@ behind them) ``flops`` is ``flops_global`` split evenly and the peak is the
 per-device args plus the trace's temporaries split evenly, both labelled.
 ``fits`` holds the peak against the card's ``total_memory`` (``--device
 cuda``) or ``--hbm-bytes`` (``--device cpu``, which has no default).
-A trace runs in one process with no mesh of ranks active, so the
-collectives of the shard_map arms are not traced and ``collectives`` is
-null with the reason; JAX's ``collective_bytes`` parses XLA's HLO text,
-and counting the port's is a design of its own, not made yet.
+
+``collectives``, per device, is JAX's record (``bytes_by_kind``,
+``counts``, ``total_bytes``), from a second, separate pass: the sharded
+trace.  Each cell is traced again as its per-device program on the mesh:
+rank 0 of a fake process group of the mesh's size
+(``launch.mesh.fake_process_mesh``, JAX's forced host devices), the args
+DTensors laid out by their specs, every op propagated by DTensor's rules,
+the shard_map arms on their local blocks (``models.sharding``).
+``Collectives`` sees every collective that program issues and files it
+under XLA's kind by JAX's byte rule: the larger of its operand and result
+bytes, lists summed (``collective_bytes``'s rule); a group of one rank
+moves nothing and is not counted, as XLA drops it.  An op DTensor has no
+sharding rule for runs on replicated inputs, and ``replicated_for`` names
+it with its calls.  A scanned LM counts from unrolled L=1 and L=2 sharded
+traces, extrapolated as JAX does (``cost_method`` says so); every other
+cell counts its whole program.
 
 ``rdfizer/shuffle_dedup`` (``--extra``) syncs with the host in its probe
 loop, so it is run for real on ``--device``: its time, peak (on a card) and
-``is_new`` count against the distinct valid keys.
+``is_new`` count against the distinct valid keys.  Its collectives are its
+rank program's (the process-mesh arm of ``core.distributed``) traced on the
+fake group; the probe loop is local and its body is traced once, as XLA
+counts a compiled while loop once.
 
 Results stream into ``--out`` one cell at a time, keyed
 ``"{arch}/{shape}@{mesh}"``; cached cells are skipped unless ``--force``.
@@ -53,6 +68,7 @@ import argparse
 import json
 import multiprocessing
 import os
+import re
 import time
 import traceback
 
@@ -62,13 +78,12 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.models import sharding
 from repro_torch.models.sharding import local_shape
-from repro_torch.train.tree import leaves
+from repro_torch.train.tree import leaves, unflatten
 
 RESULTS = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "..",
                                        "results", "torch"))
-NO_COLLECTIVES = ("collectives not counted: a trace runs in one process with no mesh of "
-                  "ranks, and the port has no counterpart of JAX's collective_bytes yet")
 
 
 # gathers read as many rows of their source as they write, not all of it
@@ -95,6 +110,146 @@ class _BytesMoved(TorchDispatchMode):
             if isinstance(t, torch.Tensor):
                 self.total += t.numel() * t.element_size()
         return out
+
+
+# the collectives by op name, filed under XLA's kinds; a wait moves nothing
+_KINDS = {
+    "c10d::allreduce_": "all-reduce", "c10d::allreduce_coalesced_": "all-reduce",
+    "c10d::_allgather_base_": "all-gather", "c10d::allgather_": "all-gather",
+    "c10d::allgather_coalesced_": "all-gather",
+    "c10d::allgather_into_tensor_coalesced_": "all-gather",
+    "c10d::_reduce_scatter_base_": "reduce-scatter", "c10d::reduce_scatter_": "reduce-scatter",
+    "c10d::reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "c10d::alltoall_base_": "all-to-all", "c10d::alltoall_": "all-to-all",
+    "_dtensor::shard_dim_alltoall": "all-to-all",
+}
+for _ns in ("_c10d_functional", "_c10d_functional_autograd"):
+    _KINDS.update({
+        f"{_ns}::all_reduce": "all-reduce", f"{_ns}::all_reduce_": "all-reduce",
+        f"{_ns}::all_reduce_coalesced": "all-reduce", f"{_ns}::all_reduce_coalesced_": "all-reduce",
+        f"{_ns}::all_gather_into_tensor": "all-gather",
+        f"{_ns}::all_gather_into_tensor_out": "all-gather",
+        f"{_ns}::all_gather_into_tensor_coalesced": "all-gather",
+        f"{_ns}::reduce_scatter_tensor": "reduce-scatter",
+        f"{_ns}::reduce_scatter_tensor_coalesced": "reduce-scatter",
+        f"{_ns}::all_to_all_single": "all-to-all",
+    })
+_MOVE_NOTHING = {"_c10d_functional::wait_tensor", "c10d::barrier", "c10d::monitored_barrier_"}
+_COLLECTIVE_NS = ("c10d::", "_c10d_functional::", "_c10d_functional_autograd::")
+
+
+def _tensor_bytes(x) -> int:
+    """Bytes of a tensor, or of the tensors in a (nested) list or tuple."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(x)
+               if isinstance(t, torch.Tensor))
+
+
+def _group_size(args) -> int | None:
+    """The ranks of a collective's group: a process group argument, or a
+    group's name."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    for a in args:
+        if isinstance(a, dist.ProcessGroup):
+            return a.size()
+        if isinstance(a, torch.ScriptObject):  # a c10d op's boxed group (or reduce op)
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except RuntimeError:
+                continue
+        if isinstance(a, str) and not a.isidentifier():  # a group name, not a reduce op
+            return _resolve_process_group(a).size()
+    return None
+
+
+class Collectives(TorchDispatchMode):
+    """Counts the collectives a program issues, per device, by JAX's rule
+    (``collective_bytes``): each one filed under XLA's kind, its bytes the
+    larger of its operand and result bytes (lists summed).  A c10d op
+    writes its results into its first argument and reads its second (the
+    one tensor list of an all-reduce); a functional one returns them.  An
+    op on DTensors passes to DTensor first, so the collectives it lowers
+    to are the ones seen.  A collective over one rank moves nothing and is
+    not counted (XLA drops it); one of no known kind raises."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes_by_kind: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func._schema.name
+        if name in _MOVE_NOTHING or not (name in _KINDS or name.startswith(_COLLECTIVE_NS)):
+            return out
+        if name not in _KINDS:
+            raise ValueError(f"collective {name} has no XLA kind to count it under")
+        if _group_size(args) == 1:
+            return out
+        if name.startswith("c10d::"):
+            operand, result = (args[1] if len(args) > 1 else None), args[0]
+        else:
+            operand, result = args[0], out
+        kind = _KINDS[name]
+        nbytes = max(_tensor_bytes(operand), _tensor_bytes(result))
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        return out
+
+    def record(self) -> dict:
+        """JAX's record: ``bytes_by_kind``, ``counts``, ``total_bytes``."""
+        return {"bytes_by_kind": dict(self.bytes_by_kind), "counts": dict(self.counts),
+                "total_bytes": sum(self.bytes_by_kind.values())}
+
+
+_RULE_MISSING = re.compile(r"Operator (\S+) does not have a sharding strategy registered")
+
+
+def _op(name: str):
+    """``aten.index_add.default`` -> the op."""
+    op = torch.ops
+    for part in name.split("."):
+        op = getattr(op, part)
+    return op
+
+
+def sharded_collectives(build, mesh) -> dict:
+    """The collectives of one device of ``mesh``: ``build()`` makes the cell
+    (fake args at global shapes) inside a fake process group of the mesh's
+    size, and its ``fn`` runs as rank 0's program on the args laid out by
+    their specs.  An op DTensor
+    has no rule for is run on replicated inputs and named in
+    ``replicated_for``: the trace starts again with it handled."""
+    from repro_torch.launch.mesh import fake_process_mesh
+
+    handler, ops = sharding.Replicated(), []
+    while True:
+        try:
+            with fake_process_mesh(mesh) as pm, sharding.sharded_trace(pm, handler, ops):
+                spec = build()
+                counter = Collectives()
+                with leaves(spec.args)[0].fake_mode:
+                    args = unflatten(spec.args, [
+                        sharding.distribute(a, s, pm)
+                        for a, s in zip(leaves(spec.args), leaves(spec.specs), strict=True)])
+                    with counter:
+                        sharding.materialize(spec.fn(*args))
+            break
+        except (NotImplementedError, RuntimeError) as e:
+            missing = _RULE_MISSING.search(str(e))
+            if missing is None or _op(missing.group(1)) in ops:
+                raise
+            ops.append(_op(missing.group(1)))
+            handler.ops.clear()
+    rec = counter.record()
+    rec["replicated_for"] = dict(handler.ops)
+    return rec
 
 
 def _nbytes(shape, dtype) -> int:
@@ -157,12 +312,24 @@ def _memory(spec, outputs, mesh) -> dict:
 
 def _extrapolate(c1: dict, c2: dict, n_layers: int) -> dict:
     """Whole-depth costs from unrolled L=1 and L=2 traces:
-    total(L) = cost(1) + (L - 1) * (cost(2) - cost(1))."""
+    total(L) = cost(1) + (L - 1) * (cost(2) - cost(1)), for the flops, the
+    bytes and (where both traces carry them) the collectives' bytes and
+    counts a kind, as JAX's ``_extrapolate`` carries them."""
 
     def ext(a, b):
         return a + (n_layers - 1) * max(b - a, 0.0)
 
-    return {k: ext(c1[k], c2[k]) for k in ("flops", "bytes_accessed")}
+    out = {k: ext(c1[k], c2[k]) for k in ("flops", "bytes_accessed") if k in c1 and k in c2}
+    if "collectives" in c1 and "collectives" in c2:
+        a, b = c1["collectives"], c2["collectives"]
+        kinds = sorted(set(a["bytes_by_kind"]) | set(b["bytes_by_kind"]))
+        coll = {k: int(ext(a["bytes_by_kind"].get(k, 0), b["bytes_by_kind"].get(k, 0)))
+                for k in kinds}
+        out["collectives"] = {
+            "bytes_by_kind": coll, "total_bytes": sum(coll.values()),
+            "counts": {k: int(ext(a["counts"].get(k, 0), b["counts"].get(k, 0)))
+                       for k in kinds}}
+    return out
 
 
 def _signature(spec) -> tuple:
@@ -202,15 +369,57 @@ def run_cell(arch: str, shape: str, mesh, mesh_name: str, *, device="cpu",
         "split": "even" if n > 1 else None,
         "peak_bytes_global": base["peak_bytes"], "memory": mem,
         "peak_method": peak_method, "hbm_bytes": hbm_bytes, "fits": peak <= hbm_bytes,
-        "collectives": None, "collectives_reason": NO_COLLECTIVES,
+        **_collectives_or_error(arch, shape, mesh),
     }
+
+
+def _collectives_or_error(arch: str, shape: str, mesh) -> dict:
+    """``cell_collectives``, or, where the sharded trace fails, ``collectives``
+    None and the reason under ``collectives_error``: the first pass's
+    flops, bytes, peak and ``fits`` stand either way."""
+    try:
+        return cell_collectives(arch, shape, mesh)
+    except Exception as e:  # noqa: BLE001 - recorded beside the first pass's record
+        return {"collectives": None, "collectives_error": f"{type(e).__name__}: {e}"[:2000],
+                "collectives_trace": traceback.format_exc()[-2000:]}
+
+
+def cell_collectives(arch: str, shape: str, mesh) -> dict:
+    """``collectives`` of one cell on ``mesh`` (its sharded trace, separate
+    from the counting trace), with ``replicated_for`` and the seconds it
+    took.  A scanned LM counts from unrolled L=1 and L=2 sharded traces,
+    extrapolated, and its ``cost_method`` says so."""
+    from repro_torch.configs import registry
+
+    t0 = time.perf_counter()
+    entry = registry.get_arch(arch)
+    if entry.family == "lm" and entry.config().scan_layers:
+        c1, c2 = ({"collectives": sharded_collectives(
+            lambda n=n: registry.build_cell(arch, shape, mesh, n_layers_override=n), mesh)}
+            for n in (1, 2))
+        coll = _extrapolate(c1, c2, entry.config().n_layers)["collectives"]
+        coll["replicated_for"] = _merged(c1["collectives"]["replicated_for"],
+                                         c2["collectives"]["replicated_for"])
+        method = {"cost_method": "direct; collectives from unrolled L=1/L=2 sharded traces, "
+                                 "extrapolated"}
+    else:
+        coll = sharded_collectives(lambda: registry.build_cell(arch, shape, mesh), mesh)
+        method = {}
+    replicated = coll.pop("replicated_for")
+    return {"collectives": coll, "replicated_for": replicated, **method,
+            "collectives_trace_s": round(time.perf_counter() - t0, 3)}
+
+
+def _merged(a: dict, b: dict) -> dict:
+    return {k: max(a.get(k, 0), b.get(k, 0)) for k in sorted(set(a) | set(b))}
 
 
 def run_extra(spec, mesh, mesh_name: str) -> dict:
     """Run an extra cell (real args) once: its time, peak on a card, and
-    the shuffle's ``is_new`` count against the distinct valid keys.  A
-    shuffle that loses keys (an overflow, or fewer new than distinct) is an
-    error."""
+    the shuffle's ``is_new`` count against the distinct valid keys; its
+    collectives are its rank program's on ``mesh``, traced on fake args of
+    the same shapes.  A shuffle that loses keys (an overflow, or fewer new
+    than distinct) is an error."""
     dev = leaves(spec.args)[0].device
     cuda = dev.type == "cuda"
     if cuda:
@@ -230,7 +439,10 @@ def run_extra(spec, mesh, mesh_name: str) -> dict:
         "run_s": round(run_s, 4),
         "peak_bytes": int(torch.cuda.max_memory_allocated()) if cuda else None,
         "n_keys": int(hi.numel()), "n_new": int(n_new), "n_distinct": n_distinct,
-        "overflow": bool(ovf), "collectives": None, "collectives_reason": NO_COLLECTIVES,
+        "overflow": bool(ovf),
+        "collectives_method": ("the rank program of the process-mesh arm, sharded trace; "
+                               "its probe loop's body once, as XLA counts a while loop"),
+        **_extra_collectives(int(hi.numel()), mesh),
     }
     if res["overflow"] or res["n_new"] != n_distinct:
         # the cell's 2^22 slots a shard hold its keys on the production
@@ -239,6 +451,15 @@ def run_extra(spec, mesh, mesh_name: str) -> dict:
         res["error"] = (f"PTT insert lost keys: is_new {res['n_new']} of {n_distinct} "
                         f"distinct, overflow {res['overflow']}, {mesh.size} shard(s)")
     return res
+
+
+def _extra_collectives(n_keys: int, mesh) -> dict:
+    from repro_torch.configs import cells
+
+    t0 = time.perf_counter()
+    coll = sharded_collectives(lambda: cells.rdfizer_shuffle_cell(mesh, n_keys), mesh)
+    return {"replicated_for": coll.pop("replicated_for"), "collectives": coll,
+            "collectives_trace_s": round(time.perf_counter() - t0, 3)}
 
 
 def _cell_records(item) -> list:
@@ -271,11 +492,14 @@ def _meshes(which: str, device: str) -> list:
 def _line(res: dict) -> str:
     if res.get("cost_method") == "run":
         return (f" run={res['run_s']}s new={res['n_new']} distinct={res['n_distinct']}"
-                f" overflow={res['overflow']}")
+                f" overflow={res['overflow']} coll={res['collectives']['total_bytes']:.3e}B/dev")
     if res["status"] == "ok":
         gib = res["memory"]["peak_bytes"] / (1 << 30)
+        coll = (f" coll={res['collectives']['total_bytes']:.3e}B/dev"
+                f" sharded={res['collectives_trace_s']}s" if res["collectives"] is not None
+                else f" coll=FAILED ({res['collectives_error'][:160]})")
         return (f" flops={res['flops_global']:.3e} peak={gib:.2f}GiB/dev"
-                f" fits={res['fits']} trace={res['trace_s']}s")
+                f" fits={res['fits']} trace={res['trace_s']}s{coll}")
     if res["status"] == "error":
         return " " + res["error"][:200]
     return ""
@@ -372,11 +596,16 @@ def main(argv=None) -> int:
 
     n = {s: sum(1 for r in results.values() if r["status"] == s)
          for s in ("ok", "skipped", "error")}
+    uncounted = [k for k, r in results.items() if r.get("collectives_error")]
     print(f"\ndry-run summary: {n['ok']} ok, {n['skipped']} skipped, {n['error']} errors")
+    if uncounted:
+        print(f"  {len(uncounted)} ok cells with no collective count: the sharded trace failed")
     for k, r in results.items():
         if r["status"] == "error":
             print(f"  ERROR {k}: {r['error'][:300]}")
-    return 1 if n["error"] else 0
+        elif r.get("collectives_error"):
+            print(f"  NO COLLECTIVES {k}: {r['collectives_error'][:300]}")
+    return 1 if n["error"] or uncounted else 0
 
 
 if __name__ == "__main__":

@@ -4,9 +4,12 @@ meshes of ranks.
 The counterpart of ``repro.launch.mesh``.  A ``Mesh`` here is a named grid
 of devices used for accounting: the dry-run (``launch.dryrun``) reads
 per-device shapes off it through ``models.sharding.local_shape``.  A
-``ProcessMesh`` is a ``("data", "model")`` grid of ranks, one process
+``ProcessMesh`` is a grid of ranks in any of those layouts, one process
 each, over ``torch.distributed`` process groups: the shard_map arms run on
 it (``models.sharding.set_mesh``), and ``run_ranks`` spawns its processes.
+``fake_process_mesh`` brings up rank 0 of an accounting mesh over a fake
+process group in the current process: the dry-run traces each cell's
+per-device program on it and counts its collectives.
 Both have ``axis_names``, ``shape`` and ``size``, so ``local_shape`` reads
 either.  Importing this module touches no device and starts no process.
 
@@ -18,6 +21,7 @@ through the host); ranks on the CPU run gloo.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import logging
@@ -76,45 +80,95 @@ AXES = ("data", "model")
 
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh(Mesh):
-    """This rank's view of a ``("data", "model")`` mesh of ranks (one
-    process each) over the default process group, which must already be up
-    (``run_ranks`` starts it); ``init`` builds it.  Ranks are numbered
-    row-major over the axes, as JAX linearizes a device's mesh position:
-    the rank at ``(d, m)`` is ``d * sizes[1] + m``."""
+    """This rank's view of a mesh of ranks (one process each) over the
+    default process group, which must already be up (``run_ranks`` starts
+    it, ``fake_process_mesh`` starts a fake one); ``init`` builds it.  Any
+    of JAX's layouts: ``("data", "model")`` or ``("pod", "data",
+    "model")``.  Ranks are numbered row-major over the axes, as JAX
+    linearizes a device's mesh position: the rank at ``(d, m)`` of a
+    ``(data, model)`` mesh is ``d * sizes[1] + m``."""
 
     device_mesh: object = dataclasses.field(default=None, compare=False, repr=False)
+    subs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @classmethod
-    def init(cls, sizes, device: str = "cuda") -> ProcessMesh:
-        """This rank's mesh of ``sizes`` (data, model) ranks on ``device``."""
+    def init(cls, sizes, device: str = "cuda", axes=AXES) -> ProcessMesh:
+        """This rank's mesh of ``sizes`` ranks, one size an axis of ``axes``,
+        on ``device``."""
         from torch.distributed.device_mesh import init_device_mesh
 
-        sizes = tuple(sizes)
-        return cls(AXES, sizes, init_device_mesh(device, sizes, mesh_dim_names=AXES))
+        sizes, axes = tuple(sizes), tuple(axes)
+        if len(sizes) != len(axes):
+            raise ValueError(f"{len(sizes)} sizes for the {len(axes)} axes {axes}")
+        return cls(axes, sizes, init_device_mesh(device, sizes, mesh_dim_names=axes))
 
     def axis_index(self, name: str) -> int:
         """This rank's index along axis ``name``."""
         return self.device_mesh.get_local_rank(name)
 
     def _names(self, axes) -> tuple:
+        """``axes`` (a name, or a tuple of names in mesh order) as a tuple."""
         names = (axes,) if isinstance(axes, str) else tuple(axes)
-        if names != self.axis_names and (len(names) != 1 or names[0] not in self.axis_names):
-            raise ValueError(f"axes {axes!r}: one of {self.axis_names} or all of them in "
-                             "mesh order")
+        order = [self.axis_names.index(a) for a in names if a in self.axis_names]
+        if not names or len(order) != len(names) or order != sorted(set(order)):
+            raise ValueError(f"axes {axes!r}: one or more of {self.axis_names}, in mesh order")
         return names
 
     def axis_size(self, axes) -> int:
-        """The ranks along ``axes`` (a name, or the mesh's axis tuple)."""
+        """The ranks along ``axes`` (a name, or a tuple of names)."""
         return math.prod(self.shape[a] for a in self._names(axes))
 
+    def sub_mesh(self, axes):
+        """The ``DeviceMesh`` of ``axes``: one axis's, or their product
+        flattened into one dim (group ranks in axis order either way)."""
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        names = self._names(axes)
+        if names not in self.subs:
+            # the mesh's rank tables are real tensors, also inside a fake trace
+            with unset_fake_temporarily():
+                sub = self.device_mesh[names[0] if len(names) == 1 else names]
+                self.subs[names] = sub if len(names) == 1 else sub._flatten("_".join(names))
+        return self.subs[names]
+
     def group(self, axes):
-        """The process group of ``axes``: one axis's group, or the world for
-        the whole mesh (group ranks in axis order either way)."""
+        """The process group of ``axes``: the world for the whole mesh, one
+        axis's group, or the flattened group of several."""
         import torch.distributed as dist
 
         names = self._names(axes)
-        return dist.group.WORLD if names == self.axis_names else self.device_mesh.get_group(
-            names[0])
+        if names == self.axis_names:
+            return dist.group.WORLD
+        return self.sub_mesh(names).get_group()
+
+
+def _fake_backend():
+    """The in-process fake transport's store, or the reason it is missing."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:  # the fake backend ships in torch's testing package
+        raise RuntimeError(f"the fake process group is not available in this torch: {e}") from e
+    return FakeStore
+
+
+@contextlib.contextmanager
+def fake_process_mesh(mesh: Mesh):
+    """Rank 0's ``ProcessMesh`` of ``mesh``'s layout over a fake process
+    group of ``mesh.size`` ranks in this process, for the ``with`` block:
+    the counterpart of JAX's forced host devices.  Collectives on it move
+    nothing; under ``FakeTensorMode`` they allocate nothing.  A process
+    holds one default group, so this raises when one is already up."""
+    import torch.distributed as dist
+
+    store = _fake_backend()
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up in this process: the fake "
+                           "accounting group needs a process of its own")
+    dist.init_process_group("fake", store=store(), rank=0, world_size=mesh.size)
+    try:
+        yield ProcessMesh.init(mesh.sizes, "cpu", axes=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()
 
 
 def transport(world: int, device: str) -> str:

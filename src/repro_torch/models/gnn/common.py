@@ -21,13 +21,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, sharding
 
 
-def shard_channels(x: torch.Tensor) -> torch.Tensor:
-    """JAX's channel-sharding constraint over a mesh's ``model`` axis; with
-    no mesh (as here, one device) the identity, as JAX's is without one."""
-    return x
+def shard_channels(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
+    """JAX's channel-sharding constraint over a mesh's ``model`` axis: in a
+    sharded trace (``models.sharding``), the feature axis (``axis``; by
+    default axis 1 of an irreps tensor ``(N/E, C, m)``, else the last)
+    split over ``model``, the leading axis left as it lies.  With no mesh
+    the identity, as JAX's is without one."""
+    if "model" not in sharding.active_axes():
+        return x
+    if axis is None:
+        axis = 1 if x.dim() == 3 else x.dim() - 1
+    return sharding.constrain_axis(x, "model", axis % x.dim())
 
 
 class GraphBatch(NamedTuple):

@@ -168,10 +168,13 @@ def forward(params, cfg: EquiformerConfig, batch: common.GraphBatch, n_graphs: i
     R = so3.rot_to_align_z(unit.to(torch.float32))
     Ds = [d.to(cfg.dtype) for d in so3.wigner_d_from_rot(cfg.l_max, R)]
 
+    def shard(t):  # JAX's channel constraint; channels are the last axis here
+        return common.shard_channels(t, axis=-1) if cfg.channel_shard else t
+
     def layer(p, x):
-        src = common.gather_src(x, batch)             # (E, n_sph, C)
-        rot = _rotate(src, Ds, inverse=False)         # edge frame
-        conv = _so2_conv(p, cfg, rot)
+        src = shard(common.gather_src(x, batch))      # (E, n_sph, C)
+        rot = shard(_rotate(src, Ds, inverse=False))  # edge frame
+        conv = shard(_so2_conv(p, cfg, rot))
         radial = layers.mlp(p["radial"], rbf)         # (E, C)
         conv = conv * radial[:, None, :]
 
@@ -185,7 +188,7 @@ def forward(params, cfg: EquiformerConfig, batch: common.GraphBatch, n_graphs: i
         vals = vals.reshape(vals.shape[0], cfg.n_sph, H, C // H)
         vals = vals * alpha[:, None, :, None].to(vals.dtype)
         msg = vals.reshape(vals.shape[0], cfg.n_sph, C)
-        msg = _rotate(msg, Ds, inverse=True)          # back to global frame
+        msg = shard(_rotate(msg, Ds, inverse=True))   # back to global frame
         agg = common.scatter_sum(msg, batch)
         x = x + agg @ p["out"]["w"]
 
@@ -193,7 +196,7 @@ def forward(params, cfg: EquiformerConfig, batch: common.GraphBatch, n_graphs: i
         h = x @ p["ffn"]["lin1"]["w"]
         gate = F.silu(h[:, 0, :])[:, None, :]
         h = h * gate
-        return x + h @ p["ffn"]["lin2"]["w"]
+        return shard(x + h @ p["ffn"]["lin2"]["w"])
 
     layer = layers.remat(layer, cfg.remat)
     for i in range(cfg.n_layers):

@@ -6,8 +6,9 @@ aggregation, residual edge/node updates.  Edge inputs are (relative
 position, distance) per the paper.  With ``cfg.remat`` each block is
 rematerialized (``layers.remat``); its inputs, the node latent ``v`` and
 the edge latent ``e``, are what a block keeps for the backward pass.
-``channel_shard`` changes nothing on one device (JAX's constrained
-variant computes the same MLP).
+``channel_shard`` places JAX's channel constraints, which act only in a
+sharded trace (``models.sharding``): on one device it changes nothing
+(JAX's constrained variant computes the same MLP).
 """
 
 from __future__ import annotations
@@ -42,8 +43,18 @@ def _mlp_ln_init(gen, d_in, d_hidden, d_out, n_layers, dtype, device):
             "ln": layers.layernorm_init(d_out, dtype, device)}
 
 
-def _mlp_ln(p, x):
-    return layers.layernorm(p["ln"], layers.mlp(p["mlp"], x))
+def _mlp_ln(p, x, shard: bool = False):
+    if not shard:
+        return layers.layernorm(p["ln"], layers.mlp(p["mlp"], x))
+    # the channel-sharded variant, as JAX writes it: a constraint after every
+    # dense (each acts only in a sharded trace; the arithmetic is the MLP's)
+    n = len(p["mlp"])
+    for i in range(n):
+        x = layers.dense(p["mlp"][f"fc{i}"], x)
+        if i < n - 1:
+            x = torch.relu(x)
+        x = common.shard_channels(x)
+    return common.shard_channels(layers.layernorm(p["ln"], x))
 
 
 def init(gen: torch.Generator, cfg: MGNConfig, device="cuda") -> dict:
@@ -65,15 +76,20 @@ def init(gen: torch.Generator, cfg: MGNConfig, device="cuda") -> dict:
 def forward(params, cfg: MGNConfig, batch: common.GraphBatch, n_graphs: int = 1):
     vec, dist, _ = common.edge_vectors(batch)
     ef = torch.cat([vec, dist[:, None]], dim=-1).to(cfg.dtype)
-    v = _mlp_ln(params["node_enc"], batch.node_feat.to(cfg.dtype))
-    e = _mlp_ln(params["edge_enc"], ef)
+    cs = cfg.channel_shard
+    v = _mlp_ln(params["node_enc"], batch.node_feat.to(cfg.dtype), shard=cs)
+    e = _mlp_ln(params["edge_enc"], ef, shard=cs)
 
     def block(p, v, e):
         e_in = torch.cat(
             [e, common.gather_src(v, batch), common.gather_dst(v, batch)], dim=-1)
-        e = e + _mlp_ln(p["edge"], e_in)
+        if cs:
+            e_in = common.shard_channels(e_in)
+        e = e + _mlp_ln(p["edge"], e_in, shard=cs)
         agg = common.scatter_sum(e, batch)
-        v = v + _mlp_ln(p["node"], torch.cat([v, agg], dim=-1))
+        v = v + _mlp_ln(p["node"], torch.cat([v, agg], dim=-1), shard=cs)
+        if cs:
+            v, e = common.shard_channels(v), common.shard_channels(e)
         return v, e
 
     block = layers.remat(block, cfg.remat)

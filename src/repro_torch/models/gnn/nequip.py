@@ -101,11 +101,15 @@ def forward(params, cfg: NequIPConfig, batch: common.GraphBatch, n_graphs: int =
             y = sh[:, l2 * l2:(l2 + 1) * (l2 + 1)]                  # (E, m2)
             yc = torch.einsum("eb,abd->ead", y, cgs[(l1, l2, l3)])  # (E, m1, m3)
             m = torch.bmm(src[l1], yc)                              # (E, C, m3)
+            if cfg.channel_shard:
+                m = common.shard_channels(m)
             m = m * w[..., None]
             msgs[l3] = m if msgs[l3] is None else msgs[l3] + m
         agg = [common.scatter_sum(m, batch) for m in msgs]
         new = [_apply_lin(p[f"self_{l}"], feats[l]) + _apply_lin(p[f"out_{l}"], agg[l])
                for l in range(cfg.l_max + 1)]
+        if cfg.channel_shard:
+            new = [common.shard_channels(f) for f in new]
         # gated nonlinearity: scalars -> silu; l>0 scaled by sigmoid gates
         scal = new[0][..., 0]
         gates = torch.sigmoid(layers.dense(p["gate"], scal))       # (N, C*l_max)
@@ -113,6 +117,8 @@ def forward(params, cfg: NequIPConfig, batch: common.GraphBatch, n_graphs: int =
         for l in range(1, cfg.l_max + 1):
             g = gates[:, (l - 1) * C: l * C]
             out.append(new[l] * g[..., None])
+        if cfg.channel_shard:
+            out = [common.shard_channels(f) for f in out]
         return tuple(out)
 
     layer = layers.remat(layer, cfg.remat)

@@ -11,6 +11,7 @@ converted weights.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -141,7 +142,9 @@ def remat(fn, enabled: bool = True):
     same operations, so the gradients are bit-equal to an unrematerialized
     run's.  The blocks and layers this wraps draw no random numbers, so the
     RNG state is neither saved nor restored (``preserve_rng_state=False``).
-    ``fn`` must return a tensor or a tuple of tensors."""
+    ``fn`` must return a tensor or a tuple of tensors.  The recomputation
+    runs under the torch-function modes the forward ran under, as JAX
+    replays the same program (the backward pass itself runs outside them)."""
     if not enabled:
         return fn
 
@@ -149,9 +152,28 @@ def remat(fn, enabled: bool = True):
         if not torch.is_grad_enabled():
             return fn(*args)
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                                 preserve_rng_state=False)
+                                                 preserve_rng_state=False,
+                                                 context_fn=_forward_modes)
 
     return run
+
+
+def _forward_modes():
+    """``checkpoint``'s contexts: none for the forward, and the forward's
+    torch-function modes for the recomputation."""
+    modes = torch.overrides._get_current_function_mode_stack()
+    if not modes:
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+
+    @contextlib.contextmanager
+    def replay():
+        with stack:
+            for mode in modes:
+                stack.enter_context(mode)
+            yield
+
+    return contextlib.nullcontext(), replay()
 
 
 def nest(flat: dict) -> dict:

@@ -18,7 +18,8 @@ top-2, dbrx 16 top-4), then one of two paths:
   block of the flattened tokens (``sharding.token_spec``: split over the
   data-parallel axes when they divide the token count, else the whole
   stream on every rank, JAX's branch for small decode batches) and gets
-  its block of the output.  The arm is forward only.
+  its block of the output.  In a sharded trace the tokens and weights are
+DTensors, entered by JAX's in-specs, and the output leaves as one.
 
 JAX's idioms, mapped: ``lax.top_k`` keeps the lower index first among
 equal probabilities, and ``torch.topk`` promises no order for ties, so the
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers, sharding
+from repro_torch.models.sharding import P
 
 
 class MoEConfig(NamedTuple):
@@ -153,11 +155,22 @@ def fsdp_gather(w: torch.Tensor, axis: int, quantized: bool) -> torch.Tensor:
     return (sharding.all_gather(q, "data", axis=axis).to(torch.float32) * scale).to(w.dtype)
 
 
-def _forward_sharded(p, cfg: MoEConfig, x):
+# the expert weights' in-specs: d_ff over ``model``, d_model over ``data``
+SHARDED_SPECS = {"gate": P(None, "data", "model"), "up": P(None, "data", "model"),
+                 "down": P(None, "model", "data")}
+
+
+def _forward_sharded(p, cfg: MoEConfig, x, with_aux: bool = True):
     """JAX's shard_map body on this rank: ``x`` (..., d) the rank's tokens,
-    ``p`` its blocks of the weights (``router`` whole)."""
+    ``p`` its blocks of the weights (``router`` whole).  In a sharded trace
+    ``x`` and ``p`` are DTensors, entered by JAX's in-specs, and ``y``
+    leaves as one."""
     d = x.shape[-1]
     xt = x.reshape(-1, d)
+    tok = sharding.token_spec(xt.shape[0], sharding.current_mesh())[0]
+    xt = sharding.enter(xt, P(tok, None))
+    p = {"router": {k: sharding.enter(v, P()) for k, v in p["router"].items()},
+         **{k: sharding.enter(p[k], SHARDED_SPECS[k]) for k in ("gate", "up", "down")}}
     q = cfg.quantized_gather
     gate_vals, gate_idx, aux = _route(p, cfg, xt)
     y_partial = _dispatch_compute_combine(
@@ -165,12 +178,16 @@ def _forward_sharded(p, cfg: MoEConfig, x):
         fsdp_gather(p["down"], 2, q))
     # row-parallel combine over the d_ff shards
     y = sharding.psum(y_partial, "model")
-    return y.reshape(x.shape), sharding.pmean(aux, sharding.active_axes())
+    if with_aux:
+        aux = sharding.leave(sharding.pmean(aux, sharding.active_axes()), P())
+    return sharding.leave(y, P(tok, None)).reshape(x.shape), aux if with_aux else None
 
 
-def forward(p, cfg: MoEConfig, x):
+def forward(p, cfg: MoEConfig, x, with_aux: bool = True):
     """x: (B, S, d) -> ((B, S, d), aux_loss).  Takes the sharded path when a
-    ``("data", "model")`` mesh is active."""
+    ``("data", "model")`` mesh is active, where ``with_aux=False`` skips the
+    aux loss's pmean (None in its place), as XLA drops a collective whose
+    result is unused."""
     if sharding.arms_active():
-        return _forward_sharded(p, cfg, x)
+        return _forward_sharded(p, cfg, x, with_aux)
     return _forward_local(p, cfg, x)

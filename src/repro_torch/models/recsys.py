@@ -88,7 +88,11 @@ def _vocab_parallel_rows(table3: torch.Tensor, flat_ids: torch.Tensor, cfg) -> t
     """JAX's shard_map row fetch on this rank: ``table3`` is the rank's
     (F, V/m, D) vocab block, ``flat_ids`` its global ids f*V + v; a masked
     local take and a psum over ``model``, after ``_local_dedup`` where
-    ``cfg.dedup_cap`` is set."""
+    ``cfg.dedup_cap`` is set.  In a sharded trace the arguments are
+    DTensors, entered by JAX's in-specs, and the rows leave as one."""
+    ids_spec = sharding.token_spec(flat_ids.shape[0], sharding.current_mesh())
+    table3 = sharding.enter(table3, P(None, "model", None))
+    flat_ids = sharding.enter(flat_ids, ids_spec)
     V, v_loc = cfg.vocab_per_field, table3.shape[1]
     lo = sharding.axis_index("model") * v_loc
 
@@ -101,8 +105,10 @@ def _vocab_parallel_rows(table3: torch.Tensor, flat_ids: torch.Tensor, cfg) -> t
 
     if cfg.dedup_cap is not None:
         uids, group = _local_dedup(flat_ids, cfg.dedup_cap)
-        return fetch(uids).index_select(0, group)  # (cap, D): the only psum
-    return fetch(flat_ids)
+        rows = fetch(uids).index_select(0, group)  # (cap, D): the only psum
+    else:
+        rows = fetch(flat_ids)
+    return sharding.leave(rows, P(ids_spec[0], None))
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -20,10 +20,12 @@ tanh form.  Tied embeddings scale by ``sqrt(d_model)`` rounded to
 every model function runs the same operations over either layout, so the
 two are bit-equal with the same weights.  ``param_specs``, ``cache_specs``
 and ``batch_axes`` give JAX's partition specs (``models.sharding.P``) for
-the dry-run's accounting.  Sequence parallelism acts only through GSPMD,
-which the port has not, so its field is kept and changes nothing here
-(``constrain`` is the identity); the int8 expert gathers
-(``moe_quant_gather``) act in ``moe._forward_sharded`` on a mesh of ranks.
+the dry-run's accounting.  JAX's sharding constraints stand where JAX
+has them (the sequence-parallel reshards, the logits, the decode
+activations): they act in a sharded trace (``models.sharding``), where
+they count the collectives GSPMD would insert, and are the identity
+otherwise; the int8 expert gathers (``moe_quant_gather``) act in
+``moe._forward_sharded`` on a mesh of ranks.
 ``cfg.remat`` rematerializes each block where grad is enabled
 (``layers.remat``, JAX's ``jax.checkpoint`` with ``nothing_saveable``):
 only a block's input is kept for the backward pass.
@@ -39,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention, layers, moe, vocab_parallel
-from repro_torch.models.sharding import P
+from repro_torch.models.sharding import P, constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,7 +259,9 @@ def cache_specs(cfg: LMConfig, dp=("data",)) -> attention.KVCache:
 def _ffn(cfg: LMConfig, p, h):
     """The block's FFN -> (out, aux): MoE, or the gated GLU (aux None)."""
     if cfg.moe:
-        return moe.forward(p["moe"], cfg.moe_cfg, h)
+        # no caller takes the aux loss: on a mesh its pmean is skipped, as
+        # XLA drops an unused collective
+        return moe.forward(p["moe"], cfg.moe_cfg, h, with_aux=False)
     act = F.silu if cfg.gated_act == "silu" else _gelu_tanh
     return layers.glu(p["ffn"], h, act=act), None
 
@@ -266,11 +270,26 @@ def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def _block_forward(cfg: LMConfig, p, x, positions):
+def _block_forward(cfg: LMConfig, p, x, positions, dp=("data",)):
+    # Megatron sequence parallelism, as JAX constrains it: the residual
+    # stream seq-sharded on 'model', gathered before the TP matmuls, the TP
+    # outputs back seq-sharded (each constraint acts in a sharded trace)
+    sp = cfg.sequence_parallel
+    if sp:
+        x = constrain(x, P(dp, "model", None))
     h = _norm(cfg, p["ln1"], x)
+    if sp:
+        h = constrain(h, P(dp, None, None))  # gather seq for attention
     h, _ = attention.forward(p["attn"], cfg.attn, h, positions)
+    if sp:
+        h = constrain(h, P(dp, "model", None))  # reduce-scatter back
     x = x + h
-    h, aux = _ffn(cfg, p, _norm(cfg, p["ln2"], x))
+    h = _norm(cfg, p["ln2"], x)
+    if sp:
+        h = constrain(h, P(dp, None, None))
+    h, aux = _ffn(cfg, p, h)
+    if sp:
+        h = constrain(h, P(dp, "model", None))
     return x + h, aux
 
 
@@ -282,13 +301,14 @@ def _embed(cfg: LMConfig, params, tokens):
     return x
 
 
-def forward(cfg: LMConfig, params, tokens):
-    """tokens (B, S) -> final hidden states (B, S, d)."""
+def forward(cfg: LMConfig, params, tokens, dp=("data",)):
+    """tokens (B, S) -> final hidden states (B, S, d).  ``dp``: the axes the
+    batch is split over, for the constraints."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     # the block's aux (an MoE's balance loss) is not part of the loss
-    block = layers.remat(lambda p, x: _block_forward(cfg, p, x, positions)[0], cfg.remat)
+    block = layers.remat(lambda p, x: _block_forward(cfg, p, x, positions, dp)[0], cfg.remat)
     for lp in unstack(params["blocks"], cfg.n_layers):
         x = block(lp, x)
     return _norm(cfg, params["ln_f"], x)
@@ -300,9 +320,10 @@ def logits_fn(cfg: LMConfig, params, h):
     return layers.dense(params["lm_head"], h)
 
 
-def loss_fn(cfg: LMConfig, params, tokens, labels):
-    h = forward(cfg, params, tokens)
-    return layers.cross_entropy_loss(logits_fn(cfg, params, h), labels)
+def loss_fn(cfg: LMConfig, params, tokens, labels, dp=("data",)):
+    h = forward(cfg, params, tokens, dp)
+    logits = constrain(logits_fn(cfg, params, h), P(dp, None, "model"))
+    return layers.cross_entropy_loss(logits, labels)
 
 
 # ------------------------------------------------------------------ decode
@@ -320,23 +341,28 @@ def make_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> attent
     )
 
 
-def decode_step(cfg: LMConfig, params, cache: attention.KVCache, tokens, position):
+def decode_step(cfg: LMConfig, params, cache: attention.KVCache, tokens, position,
+                dp=("data",)):
     """One decode step.  tokens (B, 1); position a 0-d or (B,) int tensor.
     Returns (logits (B, 1, V), cache): the cache passed in, each layer's
-    slice written in place."""
+    slice written in place.  ``dp``: the axes the batch is split over (None:
+    replicated, the serve layout), for the constraint."""
     x = _embed(cfg, params, tokens)
     for i, lp in enumerate(unstack(params["blocks"], cfg.n_layers)):
         lcache = attention.KVCache(cache.k[i], cache.v[i], cache.pos[i])
         h, _ = attention.decode_step(lp["attn"], cfg.attn, lcache, _norm(cfg, lp["ln1"], x),
                                      position)
         x = x + h
+        # serve-resident TP (dp None): activations pinned replicated, so the
+        # resident column/row-parallel weights never move
+        x = constrain(x, P(dp, None, None))
         h, _ = _ffn(cfg, lp, _norm(cfg, lp["ln2"], x))
         x = x + h
     h = _norm(cfg, params["ln_f"], x)
     return logits_fn(cfg, params, h), cache
 
 
-def prefill(cfg: LMConfig, params, tokens):
+def prefill(cfg: LMConfig, params, tokens, dp=("data",)):
     """Prefill pass: full forward, returns last-position logits (B, 1, V).
 
     ``microbatches > 1`` processes the request batch in waves (batch-chunked
@@ -346,7 +372,7 @@ def prefill(cfg: LMConfig, params, tokens):
     mb = cfg.microbatches
     if mb > 1 and b % mb == 0:
         waves = tokens.reshape(mb, b // mb, tokens.shape[1])
-        outs = [logits_fn(cfg, params, forward(cfg, params, t)[:, -1:, :]) for t in waves]
+        outs = [logits_fn(cfg, params, forward(cfg, params, t, dp)[:, -1:, :]) for t in waves]
         return torch.stack(outs).reshape(b, 1, -1)
-    h = forward(cfg, params, tokens)
+    h = forward(cfg, params, tokens, dp)
     return logits_fn(cfg, params, h[:, -1:, :])

@@ -17,7 +17,8 @@ its block of the output: rows ``(..., d)``, the same on every ``model``
 rank, and logits ``(..., V/m)``.  The token layout is JAX's
 (``sharding.token_spec``): split over the data-parallel axes when their
 product divides the token count, else replicated (tiny decode batches),
-the body the same either way.  The arms compute forward only.
+the body the same either way.  In a sharded trace the table and tokens
+are DTensors, entered by JAX's in-specs, and the output leaves as one.
 """
 
 from __future__ import annotations
@@ -25,19 +26,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import sharding
+from repro_torch.models.sharding import P
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """(V, d) table, (B, S) int ids -> (B, S, d)."""
     if not sharding.arms_active():
         return table.index_select(0, ids.reshape(-1)).reshape(*ids.shape, table.shape[1])
-    full = sharding.all_gather(table, "data", axis=1)  # (V/m, d)
-    v_loc = full.shape[0]
-    local = ids - sharding.axis_index("model") * v_loc
+    flat = ids.reshape(-1)
+    ids_spec = sharding.token_spec(flat.shape[0], sharding.current_mesh())
+    full = sharding.all_gather(sharding.enter(table, P("model", "data")), "data", axis=1)
+    ids_l = sharding.enter(flat, ids_spec)
+    v_loc = full.shape[0]  # (V/m, d)
+    local = ids_l - sharding.axis_index("model") * v_loc
     ok = (local >= 0) & (local < v_loc)
-    rows = full.index_select(0, local.clamp(0, v_loc - 1).reshape(-1))
-    rows = torch.where(ok.reshape(-1, 1), rows, 0).reshape(*ids.shape, full.shape[1])
-    return sharding.psum(rows, "model")
+    rows = full.index_select(0, local.clamp(0, v_loc - 1))
+    rows = sharding.psum(torch.where(ok[:, None], rows, 0), "model")
+    return sharding.leave(rows, P(ids_spec[0], None)).reshape(*ids.shape, -1)
 
 
 def tied_logits(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -45,4 +50,8 @@ def tied_logits(table: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     rank's (..., V/m) vocab slice (ready for a sharded-softmax loss)."""
     if not sharding.arms_active():
         return h @ table.T
-    return h @ sharding.all_gather(table, "data", axis=1).T
+    flat = h.reshape(-1, h.shape[-1])
+    h_spec = sharding.token_spec(flat.shape[0], sharding.current_mesh())
+    full = sharding.all_gather(sharding.enter(table, P("model", "data")), "data", axis=1)
+    logits = sharding.enter(flat, P(h_spec[0], None)) @ full.T
+    return sharding.leave(logits, P(h_spec[0], "model")).reshape(*h.shape[:-1], -1)

@@ -77,7 +77,7 @@ class AdamW:
         if self.grad_clip is not None:
             sq = None
             for g in gs:
-                s = _sum_sq(g)
+                s = self._leaf_sq(g)
                 sq = s if sq is None else sq + s
             gnorm = torch.sqrt(sq)
             limit = torch.full_like(gnorm, self.grad_clip)
@@ -93,6 +93,10 @@ class AdamW:
                               strict=True):
             self._update_leaf(g, m, v, p, scale, c1, c2)
         return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
+
+    def _leaf_sq(self, g: torch.Tensor) -> torch.Tensor:
+        """A leaf's share of the squared gradient norm."""
+        return _sum_sq(g)
 
     def _update_leaf(self, g, m, v, p, scale, c1, c2) -> None:
         gf, mf, vf, pf = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)

@@ -426,7 +426,12 @@ def test_rdfizer_cell_runs_exactly():
     res = dryrun.run_extra(spec, mesh, "two")
     assert res["status"] == "ok"
     assert res["n_new"] == res["n_distinct"] > 0 and not res["overflow"]
-    assert res["peak_bytes"] is None and res["collectives"] is None
+    # the rank program's: the keys (hi, lo) and the flags back, 2 shards of
+    # 16,384 slots (8,192 keys a shard, 4x slack); the overflow pmax and the
+    # int32 is_new count
+    assert res["peak_bytes"] is None and res["collectives"] == {
+        "bytes_by_kind": {"all-to-all": 2 * 2 * 16384 * (4 + 4 + 1) // 2, "all-reduce": 8},
+        "counts": {"all-to-all": 3, "all-reduce": 2}, "total_bytes": 294920}
     # lost keys, by an overflow or a short is_new count, make the run an error
     for lose in ({"overflow": True}, {"short": 1}):
         def fn(*a, lose=lose):
@@ -451,7 +456,9 @@ def test_run_cell_accounts_per_device():
     # the tables split 16 ways on the vocab axis, the MLP whole
     assert pod["memory"]["argument_size_in_bytes"] < args / 15
     assert local["fits"] and local["memory"]["peak_bytes"] >= args
-    assert local["collectives"] is None and "not counted" in local["collectives_reason"]
+    # one device moves nothing; on the pod the lookups' psums over model
+    assert local["collectives"] == {"bytes_by_kind": {}, "counts": {}, "total_bytes": 0}
+    assert pod["collectives"]["counts"] == {"all-reduce": 2} and pod["replicated_for"] == {}
     assert dryrun.run_cell("qwen2.5-3b", "long_500k", LOCAL, "local", hbm_bytes=hbm) == {
         "status": "skipped", "reason": registry.get_arch("qwen2.5-3b").skips["long_500k"]}
 
@@ -485,7 +492,7 @@ def test_dryrun_cli_fits_and_hbm_bytes(tmp_path, monkeypatch, capsys):
             dryrun.main(["--cell", "wide-deep/serve_p99", "--out", out])
     # the roofline reads the record, at the H100's constants
     rows = roofline.derive(out)
-    assert rows[0]["cell"] == "wide-deep/serve_p99@local" and rows[0]["t_collective_s"] is None
+    assert rows[0]["cell"] == "wide-deep/serve_p99@local" and rows[0]["t_collective_s"] == 0.0
     assert rows[0]["t_compute_s"] == rec["flops"] / 989e12
     assert "wide-deep/serve_p99@local" in roofline.render(rows)
     # the runner's roofline section, over the same record
@@ -536,6 +543,14 @@ def test_hillclimb_variants(tmp_path, monkeypatch):
     arg_bytes = [cr[k]["memory"]["argument_size_in_bytes"]
                  for k in ("baseline_fsdp", "serve_resident_tp")]
     assert arg_bytes[1] - arg_bytes[0] == batch * 4 - batch // 4 * 4
+    # the layouts move different collectives (the sharded trace counts them)
+    coll = [cr[k]["collectives"]["bytes_by_kind"] for k in ("baseline_fsdp",
+                                                            "serve_resident_tp")]
+    assert coll[0] != coll[1] and all(c["all-gather"] > 0 for c in coll)
+    for rec in cr.values():
+        assert rec["t_collective_s"] == rec["collectives"]["total_bytes"] / roofline.LINK_BW
     wd = res["widedeep_dedup_gather"]
     assert wd["baseline"]["bytes_accessed"] != wd["dedup_gather"]["bytes_accessed"]
-    assert hillclimb.QUANT_NOTE
+    # the dedup cap shrinks what rides the lookups' psums
+    assert (wd["dedup_gather"]["collectives"]["total_bytes"]
+            < wd["baseline"]["collectives"]["total_bytes"])
