@@ -145,7 +145,12 @@ Phases, each of which makes the script exit non-zero when it fails:
      ``decode_32k`` traced, which does not fit one card; each cell's
      collectives a device (the sharded trace over a fake process group, JAX's
      byte rule) and their link term printed on the local and 16x16 meshes;
-     no K1-K4 launch;
+     NequIP and Equiformer ``ogb_products`` at their full widths and edge
+     counts, one layer, traced on the 16x16 mesh (their per-edge ops on
+     each rank's edge block: the phase fails on an error or an empty
+     count); mixtral-8x7b ``train_4k``'s collectives on 16x16 held within
+     0.67-1.5 of JAX's (``MIXTRAL_TRAIN_JAX_16X16``, bf16 at XLA:CPU's 4
+     bytes on both sides); no K1-K4 launch;
  21. collectives across ranks (``phase_collectives``): 4 spawned ranks of a
      (2, 2) ``ProcessMesh`` on the one card (``launch.mesh.run_ranks``; gloo
      on CUDA tensors, the ranks sharing the card; backend, world size and
@@ -396,6 +401,12 @@ def max_abs_err(pairs) -> int:
 
 DRYRUN_CELLS = ("wide-deep/train_batch", "gat-cora/full_graph_sm", "wide-deep/serve_p99")
 DRYRUN_PEAK_RTOL = 0.10  # the traced peak against the card's, of the card's
+EDGE_SPLIT_GNNS = ("nequip", "equiformer-v2")  # ogb_products, traced at one layer
+# JAX's collective bytes a device for mixtral-8x7b train_4k on the 16x16 mesh
+# (scripts/collectives_vs_jax.py --mesh single, on the CPU, bf16 at XLA:CPU's
+# 4 bytes; extrapolated from L=1 and L=2), and the band the port's is held to
+MIXTRAL_TRAIN_JAX_16X16 = 593_539_565_360
+TRAIN_VS_JAX = (0.67, 1.5)
 
 
 def phase_dryrun(kernel_mods):
@@ -481,8 +492,64 @@ def phase_dryrun(kernel_mods):
         f"{res['memory']['peak_bytes'] / 1e9:.3f} GB (args "
         f"{res['memory']['argument_size_in_bytes'] / 1e9:.3f} GB) against "
         f"{hbm / 1e9:.3f} GB, flops {res['flops_global']:.4e}, trace {res['trace_s']:.3f} s")
+    phase_dryrun_faults(pod)
     launches = counts(kernel_mods)
     check(not any(launches.values()), f"the dry-run phase launched K1-K4: {launches}")
+
+
+def phase_dryrun_faults(pod) -> None:
+    """Phase 20's sharded traces that once failed or strayed from JAX's on
+    this torch: NequIP and Equiformer ``ogb_products`` (one layer at full
+    width and edge count, the edges split over the data axes) counted on
+    16x16, and mixtral-8x7b ``train_4k``'s total there against JAX's."""
+    import dataclasses
+
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import cells, registry
+    from repro_torch.launch import dryrun
+
+    shape = registry.GNN_SHAPES["ogb_products"]
+    for arch in EDGE_SPLIT_GNNS:
+        cfg = dataclasses.replace(registry.gnn_cell_config(arch, "ogb_products"), n_layers=1)
+
+        def build(arch=arch, cfg=cfg):
+            return cells.gnn_train_cell(arch, cfg, pod, n=shape["n"], e=shape["e"],
+                                        d_feat=shape["d_feat"], task=shape["task"],
+                                        n_classes=shape["n_classes"], shard_edges=True,
+                                        shape_name="ogb_products")
+
+        t0 = time.perf_counter()
+        coll = dryrun.sharded_collectives(build, pod)  # an error fails the phase
+        check(bool(coll["counts"]) and coll["total_bytes"] > 0,
+              f"{arch}/ogb_products@single_pod_16x16: no collectives counted: {coll}")
+        replicated = coll.pop("replicated_for")
+        log_collectives(f"{arch}/ogb_products (1 layer, {shape['e']:,} edges)",
+                        "single_pod_16x16", {"collectives": coll, "replicated_for": replicated})
+        log(f"dry-run {arch}/ogb_products@single_pod_16x16: sharded trace "
+            f"{time.perf_counter() - t0:.1f} s, no collectives_error")
+
+    def xla_cpu_bytes(x) -> int:  # bf16 at 4 bytes, as XLA's CPU compile widens it
+        return sum(t.numel() * (4 if t.dtype == torch.bfloat16 else t.element_size())
+                   for t in tree_leaves(x) if isinstance(t, torch.Tensor))
+
+    held, dryrun._tensor_bytes = dryrun._tensor_bytes, xla_cpu_bytes
+    t0 = time.perf_counter()
+    try:
+        res = dryrun.cell_collectives("mixtral-8x7b", "train_4k", pod)
+    finally:
+        dryrun._tensor_bytes = held
+    got = res["collectives"]["total_bytes"]
+    ratio = got / MIXTRAL_TRAIN_JAX_16X16
+    log(f"dry-run mixtral-8x7b/train_4k@single_pod_16x16 (bf16 at XLA:CPU's 4 bytes): port "
+        f"{got:,} B a device against JAX's {MIXTRAL_TRAIN_JAX_16X16:,} B, port / JAX "
+        f"{ratio:.3f} (" + ", ".join(f"{k} {v:,}" for k, v in sorted(
+            res["collectives"]["bytes_by_kind"].items())) +
+        f"), sharded traces {time.perf_counter() - t0:.1f} s")
+    check(TRAIN_VS_JAX[0] <= ratio <= TRAIN_VS_JAX[1],
+          f"mixtral-8x7b/train_4k@single_pod_16x16: port / JAX {ratio:.3f} outside "
+          f"{TRAIN_VS_JAX}")
 
 
 def log_collectives(cell: str, mesh_name: str, res: dict) -> None:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models.sharding import carry
 
 NEG = -1e30  # the masked score
 
@@ -128,7 +129,7 @@ def _chunked_sdpa(q, k, v, pos_q, pos_k, window, scale, chunk):
         l = l * alpha + torch.sum(p, dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
             "bhgsc,bchd->bhgsd", p.to(vc.dtype), vc).to(torch.float32)
-        m = new_m
+        m, l, acc = carry(new_m, l, acc)  # JAX's scan carry
     out = acc / torch.clamp_min(l, 1e-20)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
@@ -168,16 +169,16 @@ def write_cache(cache: KVCache, k, v, slot, posb) -> None:
     """Write each row's new ``k``/``v`` (B, 1, n_kv, D) and position into its
     slot, in place, with JAX's edges: a negative slot counts from the end;
     ``k``/``v`` then clamp the slot into [0, T-1], ``pos`` skips a slot
-    outside it.  No host sync."""
+    outside it (the write lands where a row's slot mask holds, and no old
+    position is read back).  No host sync."""
     t = cache.k.shape[1]
     slot = torch.where(slot < 0, slot + t, slot)
     rows = torch.arange(slot.shape[0], device=slot.device)
     kv_slot = torch.clamp(slot, 0, t - 1).to(torch.int64)
     cache.k[rows, kv_slot] = k[:, 0]
     cache.v[rows, kv_slot] = v[:, 0]
-    inside = (slot >= 0) & (slot < t)
-    cache.pos[rows, kv_slot] = torch.where(inside, posb.to(cache.pos.dtype),
-                                           cache.pos[rows, kv_slot])
+    hit = torch.arange(t, device=slot.device)[None, :] == slot[:, None]  # none outside [0, T)
+    cache.pos.copy_(torch.where(hit, posb.to(cache.pos.dtype)[:, None], cache.pos))
 
 
 def decode_step(p, cfg: AttnConfig, cache: KVCache, x, position):

@@ -175,7 +175,10 @@ def wigner_d_from_rot(l_max: int, R: torch.Tensor) -> list[torch.Tensor]:
     recursion D^l = C^T (D^{l-1} (x) D^1) C.  D^1 is R conjugated into the
     real-SH (y, z, x) ordering.  Tensors on R's device, differentiable.
     JAX contracts ``C^T kron C`` with one ``einsum`` (whose pairing XLA
-    chooses); here it is ``(C^T @ kron) @ C``, equal to rounding.
+    chooses); here it is ``(C^T @ kron) @ C``, equal to rounding.  The
+    Kronecker product takes the rotations flattened to one batch label (an
+    ``einsum`` with no ellipsis, which a sharded trace partitions on each
+    rank's block).
     """
     batch = R.shape[:-2]
     perm = np.array([[0, 1, 0], [0, 0, 1], [1, 0, 0]], dtype=np.float64)
@@ -184,10 +187,9 @@ def wigner_d_from_rot(l_max: int, R: torch.Tensor) -> list[torch.Tensor]:
     Ds = [torch.ones(batch + (1, 1), dtype=R.dtype, device=R.device), D1]
     for l in range(2, l_max + 1):
         C = torch.as_tensor(_cg_stack_matrix(l), dtype=R.dtype, device=R.device)
-        prev = Ds[l - 1]
-        kron = torch.einsum("...ab,...cd->...acbd", prev, D1).reshape(
-            batch + ((2 * l - 1) * 3, (2 * l - 1) * 3)
-        )
+        n = 2 * l - 1  # the size of D^{l-1}
+        kron = torch.einsum("eab,ecd->eacbd", Ds[l - 1].reshape(-1, n, n),
+                            D1.reshape(-1, 3, 3)).reshape(batch + (n * 3, n * 3))
         Ds.append((C.T @ kron) @ C)
     return Ds
 

@@ -151,7 +151,7 @@ def fsdp_gather(w: torch.Tensor, axis: int, quantized: bool) -> torch.Tensor:
     block gathered dequantized with this rank's scales."""
     if not quantized:
         return sharding.all_gather(w, "data", axis=axis)
-    q, scale = quantize(w, (1, 2))
+    q, scale = sharding.once(quantize, w, (1, 2))  # once a step in a sharded trace
     return (sharding.all_gather(q, "data", axis=axis).to(torch.float32) * scale).to(w.dtype)
 
 

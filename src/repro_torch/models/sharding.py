@@ -41,12 +41,17 @@ would, the trace partitions it as GSPMD does, and the model code carries
 only JAX's own constraints: a torch-function mode (``_Partitioner``) takes
 the products with a weight (FSDP's gather at use and in the backward, the
 row-parallel sums reduced where made, the backward's transposed dots laid
-out by their operands), two-operand ``einsum`` on each rank's blocks, and
-``logsumexp``/``gather`` over a split vocabulary; DTensor op handlers take
-views, gathers and scatters by indices, the softmax over a length-split
-cache (the flash-decoding combine) and the cache's slot reads and writes.
-An op DTensor has no rule for runs on its inputs replicated
-(``Replicated``), and the trace names it.
+out as the forward's operand whose cotangent they make), two-operand
+``einsum`` on each rank's blocks, and ``logsumexp``/``gather`` over a
+split vocabulary; DTensor op handlers take views, ``stack``, gathers and
+scatters by indices, the softmax over a length-split cache (the
+flash-decoding combine) and the cache's slot reads and writes.  A loop's
+``carry`` keeps its layout in the backward, as a ``lax.scan`` carry does,
+and an arm's gather of a block already gathered in the step is not issued
+again, as XLA's CSE merges it.  The handlers act alike in every torch
+version, whose own rules for these ops differ.  An op DTensor has no rule
+for runs on its inputs replicated (``Replicated``), and the trace names
+it.
 
 JAX's version shims (``repro.compat``: ``shard_map``, ``pallas_native``,
 ``compat_make_mesh``) have no counterpart: they wrap jax APIs that differ
@@ -168,6 +173,28 @@ class _Constrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _redistribute(g, ctx.target), None
+
+
+def carry(*xs):
+    """A loop's carry, as JAX's ``lax.scan`` carries it: in a sharded trace
+    each DTensor's cotangent is split as the tensor is (XLA's while loop
+    holds one layout for its carry, and its transposed loop's carry takes
+    that split, resharding a cotangent once where the loop starts; on an
+    axis the tensor is whole over, the cotangent stays as it lies);
+    otherwise the tensors as they are."""
+    return tuple(_Carry.apply(x) if is_distributed(x) else x for x in xs)
+
+
+class _Carry(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _redistribute(g, [p if p.is_shard() else q
+                                 for p, q in zip(ctx.placements, g.placements)])
 
 
 def _axes(part) -> tuple:
@@ -292,6 +319,42 @@ def _scatter0(x: torch.Tensor, ways: int, group) -> torch.Tensor:
     return out
 
 
+_ISSUED: contextvars.ContextVar = contextvars.ContextVar("repro_torch_issued", default=None)
+
+
+def _once(tag: tuple, x: torch.Tensor, issue, fresh: bool = True):
+    """``issue()``, a collective (or a pure function) of ``x``, as XLA's CSE
+    leaves it in a compiled step: in a sharded trace one of the same
+    ``tag`` on the same value (the same view of one storage, unwritten
+    since) is issued once and its result reused, a copy where ``fresh`` (a
+    weight's block gathered by an arm in every microbatch and again in its
+    rematerialized forward); otherwise issued."""
+    memo = _ISSUED.get()
+    if memo is None:
+        return issue()
+    key = (tag, x.untyped_storage()._cdata, x.storage_offset(), tuple(x.shape), x.stride(),
+           x.dtype, x._version)
+    if key not in memo:
+        memo[key] = (x, issue())  # x held: its storage is not freed and reused
+    return memo[key][1].clone() if fresh else memo[key][1]
+
+
+def once(fn, x: torch.Tensor, *args):
+    """``fn(x, *args)`` for a pure ``fn``: in a sharded trace its first
+    result for a value of ``x``, detached, is reused (``_once``), as XLA's
+    CSE keeps one copy of a pure computation in a compiled step (so a
+    collective of it is issued once too); ``fn`` still runs, so a
+    rematerialized forward records what the first did.  Otherwise
+    ``fn(x, *args)``."""
+    from torch.utils._pytree import tree_map
+
+    out = fn(x, *args)
+    if _ISSUED.get() is None:
+        return out
+    return _once(("once", fn, args), x, lambda: tree_map(torch.Tensor.detach, out),
+                 fresh=False)
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -315,12 +378,14 @@ class _AllToAll(torch.autograd.Function):
 
 
 class _AllGather(torch.autograd.Function):
-    """The tiled gather along axis 0; its transpose is a reduce-scatter."""
+    """The tiled gather along axis 0; its transpose is a reduce-scatter.  In
+    a sharded trace a gather of a block already gathered is not issued
+    again (``_once``)."""
 
     @staticmethod
     def forward(ctx, x, ways, group):
         ctx.ways, ctx.group = ways, group
-        return _gather0(x, ways, group)
+        return _once(("all-gather", ways, group), x, lambda: _gather0(x, ways, group))
 
     @staticmethod
     def backward(ctx, g):
@@ -581,30 +646,48 @@ class _Dot(torch.autograd.Function):
         rows = "bs"[:x.dim() - 1]
         g = reduced(g)
         gx = reduced(_blocks_dot(f"{rows}n,kn->{rows}k", g, w))
-        gw = _redistribute(_blocks_dot(f"{rows}k,{rows}n->kn", x, g), list(w.placements))
+        gw = _redistribute(_blocks_dot(f"{rows}k,{rows}n->kn", x, g, list(w.placements)),
+                           list(w.placements))
         return gx, gw
 
 
-def _blocks_dot(equation: str, a, b):
+def _blocks_dot(equation: str, a, b, keep=None):
     """``torch.einsum(equation, a, b)`` on DTensors (no repeated label, no
     ellipsis), as GSPMD partitions a dot: on each axis, where the operands
     are split along different labels, the smaller one gathered; the label
     left split, split alike in the operand that holds it whole (a slice,
     free); then each rank's einsum of its blocks, the output split along
     the label where it keeps it, a partial sum where the label is summed.
-    A label its axis does not divide is gathered (GSPMD would pad it)."""
+    A label its axis does not divide is gathered (GSPMD would pad it).
+
+    ``keep`` (a transposed dot's: the placements of the forward operand
+    whose cotangent it makes) is the output's layout where sharding
+    propagation gives GSPMD one: on an axis where ``keep`` splits an output
+    label, that label is split, in each operand that holds it, and an
+    operand without it is gathered over the axis; where the operands share
+    a split of a summed label there, the partial sum stays if its reduction
+    moves no more than gathering the operands would, and they are gathered
+    otherwise."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     (la, lb), lo = equation.split("->")[0].split(","), equation.split("->")[1]
     a_small = a.numel() * a.element_size() <= b.numel() * b.element_size()
     mesh, sizes = a.device_mesh, dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+    out_bytes = math.prod(sizes[c] for c in lo) * a.element_size()
+    gather_cheaper = keep is not None and out_bytes > (a.numel() * a.element_size()
+                                                       + b.numel() * b.element_size())
+    keep = keep if keep is not None else [Replicate()] * mesh.ndim
     pa, pb, po = [], [], []
-    for qa, qb, n in zip(a.placements, b.placements, mesh.shape):
+    for qa, qb, n, want in zip(a.placements, b.placements, mesh.shape, keep):
         ca = la[qa.dim] if qa.is_shard() else None
         cb = lb[qb.dim] if qb.is_shard() else None
+        summed = ca if ca and ca == cb and ca not in lo else None
         if ca and cb and ca != cb:
             ca, cb = (None, cb) if a_small else (ca, None)
-        label = ca or cb
+        label = None if summed and gather_cheaper else ca or cb
+        kept = lo[want.dim] if want.is_shard() and not summed else None
+        if kept and sizes[kept] % n == 0:
+            label = kept
         if label and sizes[label] % n:
             label = None
         pa.append(Shard(la.index(label)) if label and label in la else Replicate())
@@ -648,6 +731,66 @@ def _logsumexp(x, dim, keepdim=False):
     shape = x.shape[:-1]
     return DTensor.from_local(out, x.device_mesh, _whole_last(x), run_check=False, shape=shape,
                               stride=_contiguous_stride(shape))
+
+
+class _Summed(torch.autograd.Function):
+    """The ranks' partial sums reduced over ``group``; its transpose hands
+    the cotangent to each rank's partial as it is (GSPMD's broadcast,
+    free)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce(x, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _rows(x, dim, kwargs) -> tuple:
+    """The axes that split the last dim of ``x``, where a reduction over
+    ``dim`` is one over that dim alone of a DTensor held in no partial sum
+    (empty otherwise)."""
+    dims = dim if isinstance(dim, (tuple, list)) else (dim,)
+    if (set(kwargs) - {"keepdim", "correction"} or len(dims) != 1 or dims[0] is None
+            or dims[0] % x.dim() != x.dim() - 1
+            or any(p.is_partial() for p in getattr(x, "placements", ()))):
+        return ()
+    return _split_last(x)
+
+
+def _row_stat(x, out, keepdim):
+    from torch.distributed.tensor import DTensor
+
+    out = out if keepdim else out[..., 0]
+    shape = (*x.shape[:-1], 1) if keepdim else x.shape[:-1]
+    return DTensor.from_local(out, x.device_mesh, _whole_last(x), run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _mean(x, dim=None, **kwargs):
+    """``torch.mean`` over a split last dim, as GSPMD partitions it: each
+    rank's sum over its block, reduced over the axes that split it."""
+    names = _rows(x, dim, kwargs)
+    if not names:
+        return NotImplemented
+    group = _SHARDED.get().group(names)
+    out = _Summed.apply(torch.sum(x.to_local(), dim=-1, keepdim=True), group) / x.shape[-1]
+    return _row_stat(x, out, kwargs.get("keepdim", False))
+
+
+def _var(x, dim=None, **kwargs):
+    """``torch.var`` over a split last dim, as JAX's ``var`` partitions: the
+    mean, then each rank's squared deviations summed over its block,
+    each sum reduced over the axes that split the dim."""
+    names = _rows(x, dim, kwargs)
+    if not names:
+        return NotImplemented
+    group, xl, n = _SHARDED.get().group(names), x.to_local(), x.shape[-1]
+    mu = _Summed.apply(torch.sum(xl, dim=-1, keepdim=True), group) / n
+    out = _Summed.apply(torch.sum((xl - mu) ** 2, dim=-1, keepdim=True), group) / (
+        n - kwargs.get("correction", 1))
+    return _row_stat(x, out, kwargs.get("keepdim", False))
 
 
 def _gather(x, dim, index, **kwargs):
@@ -716,8 +859,10 @@ class _Einsum(torch.autograd.Function):
         a, b = ctx.saved_tensors
         (la, lb), lo = ctx.equation.split("->")[0].split(","), ctx.equation.split("->")[1]
         g = reduced(g)
-        ga = reduced(_blocks_dot(f"{lo},{lb}->{la}", g, b)) if ctx.needs_input_grad[1] else None
-        gb = reduced(_blocks_dot(f"{lo},{la}->{lb}", g, a)) if ctx.needs_input_grad[2] else None
+        ga = (reduced(_blocks_dot(f"{lo},{lb}->{la}", g, b, list(a.placements)))
+              if ctx.needs_input_grad[1] else None)
+        gb = (reduced(_blocks_dot(f"{lo},{la}->{lb}", g, a, list(b.placements)))
+              if ctx.needs_input_grad[2] else None)
         return None, ga, gb
 
 
@@ -735,6 +880,7 @@ _RULES = {
     torch.logsumexp: _logsumexp, torch.Tensor.logsumexp: _logsumexp,
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.einsum: _einsum,
+    torch.mean: _mean, torch.Tensor.mean: _mean, torch.var: _var, torch.Tensor.var: _var,
     torch.Tensor.__bool__: _host_read,
 }
 
@@ -742,7 +888,8 @@ _RULES = {
 class _Partitioner(TorchFunctionMode):
     """GSPMD's choices where DTensor's own rule would lay out or move
     tensors otherwise, for the calls in ``_RULES``: a matmul (a product with
-    a 2-D weight, and its backward), ``logsumexp`` and ``gather`` along a split last dim, a
+    a 2-D weight, and its backward), ``logsumexp``, ``gather``, ``mean`` and
+    ``var`` along a split last dim, a
     two-operand ``einsum`` split along different labels, and a host read
     of a flag.  Every other call runs as it is."""
 
@@ -914,9 +1061,10 @@ class _Takes:
     whole (gathered where it was split), each rank takes its indices' rows,
     the rows split as the indices and the other dims as the tensor (where
     an axis would split both, the indices are gathered over it).  Along
-    another dim, DTensor's own rule, or ``fallback`` where it has none.
-    The same in every torch version, whose own rules for these ops
-    differ."""
+    another dim that is whole, each rank takes from its own block (the
+    indices gathered); along a split one, DTensor's own rule, or
+    ``fallback`` where it has none.  The same in every torch version, whose
+    own rules for these ops differ."""
 
     def __init__(self, table, fallback):
         self.table, self.fallback = table, fallback
@@ -935,8 +1083,16 @@ class _Takes:
 
         x, dim, idx = args
         x, idx = _whole((x, idx))
+        dim %= x.dim()
         if dim != 0:
-            return self.own(op, args, kwargs)
+            if any(p.is_shard(dim) or p.is_partial() for p in x.placements):
+                return self.own(op, args, kwargs)
+            # along a whole dim: each rank takes from its own block
+            idx = _laid(idx, [Replicate()] * x.device_mesh.ndim)
+            rows = torch.index_select(x.to_local(), dim, idx.to_local())
+            shape = (*x.shape[:dim], idx.shape[0], *x.shape[dim + 1:])
+            return DTensor.from_local(rows, x.device_mesh, x.placements, run_check=False,
+                                      shape=shape, stride=_contiguous_stride(shape))
         xt = [Replicate() if p.is_shard(0) else p for p in x.placements]
         it = [Shard(0) if pi == Shard(0) and not px.is_shard() else Replicate()
               for pi, px in zip(idx.placements, xt)]
@@ -955,15 +1111,37 @@ class _Adds(_Takes):
     source as a partial sum) both take the split and each rank adds its
     rows into the tensor (counted once), and these partial sums are
     reduced; on the other axes the tensor and the source share one layout.
-    Along another dim, as ``_Takes``."""
+    Along another dim that both hold whole, each rank adds its own block's
+    rows (the indices gathered, the two laid out alike); along a split one,
+    DTensor's own rule."""
+
+    def along(self, op, args, kwargs, x, dim, idx, src):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        x, src = reduced(x), reduced(src)
+        target = _alike((x, src), dim)
+        inplace = op is torch.ops.aten.index_add_.default
+        if any(p.is_shard(dim) for p in (*x.placements, *src.placements)) or (
+                inplace and target != list(x.placements)):
+            return self.own(op, args, kwargs)
+        xl, sl = _laid(x, target).to_local(), _laid(src, target).to_local()
+        il = _laid(idx, [Replicate()] * x.device_mesh.ndim).to_local()
+        alpha = (kwargs or {}).get("alpha", 1)
+        if inplace:
+            xl.index_add_(dim, il, sl, alpha=alpha)
+            return args[0]
+        return DTensor.from_local(torch.index_add(xl, dim, il, sl, alpha=alpha), x.device_mesh,
+                                  target, run_check=False, shape=x.shape,
+                                  stride=_contiguous_stride(x.shape))
 
     def __call__(self, op, args, kwargs):
         from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
         x, dim, idx, src = args[:4]
         x, idx, src = _whole((x, idx, src))
+        dim %= x.dim()
         if dim != 0:
-            return self.own(op, args, kwargs)
+            return self.along(op, args, kwargs, x, dim, idx, src)
         xt, it, st, out = [], [], [], []
         for px, pi, ps in zip(x.placements, idx.placements, src.placements):
             row = pi == Shard(0) or ps == Shard(0)
@@ -989,6 +1167,66 @@ class _Adds(_Takes):
                                 alpha=(kwargs or {}).get("alpha", 1))
         return reduced(DTensor.from_local(local, mesh, out, run_check=False, shape=x.shape,
                                           stride=_contiguous_stride(x.shape)))
+
+
+def _alike(tensors, dim=None) -> list:
+    """One layout for DTensors of one rank: on each axis the split they share
+    (one whole there is sliced to it, free), whole where their splits differ
+    or fall on ``dim``."""
+    from torch.distributed.tensor import Replicate
+
+    target = []
+    for ps in zip(*(t.placements for t in tensors)):
+        split = {p for p in ps if p.is_shard()}
+        p = split.pop() if len(split) == 1 else None
+        target.append(p if p is not None and p.dim != dim else Replicate())
+    return target
+
+
+class _Join:
+    """The handler a sharded trace gives DTensor for ``stack`` and ``cat``:
+    the tensors laid out alike (``_alike``; the joined dim whole for
+    ``cat``), each rank's blocks joined, a new dim whole.  DTensor's own
+    rules differ between torch versions (some shift a split dim past a new
+    last dim of ``stack``, or lay out a ``cat`` along a split dim
+    otherwise)."""
+
+    def __call__(self, op, args, kwargs):
+        from torch.distributed.tensor import DTensor, Shard
+
+        tensors = [reduced(t) for t in _whole(list(args[0]))]
+        new = op is torch.ops.aten.stack.default
+        dim = (args[1] if len(args) > 1 else (kwargs or {}).get("dim", 0)) % (
+            tensors[0].dim() + new)
+        target = _alike(tensors, None if new else dim)
+        y = op([_laid(t, target).to_local() for t in tensors], dim)
+        shape = list(tensors[0].shape)
+        if new:
+            shape.insert(dim, len(tensors))
+        else:
+            shape[dim] = sum(t.shape[dim] for t in tensors)
+        out = [Shard(p.dim + (new and p.dim >= dim)) if p.is_shard() else p for p in target]
+        return DTensor.from_local(y, tensors[0].device_mesh, out, run_check=False,
+                                  shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+class _Cross(_Takes):
+    """The handler for ``linalg_cross`` of two tensors of one shape: laid
+    out alike (``_alike``) with the product's dim whole, each rank's cross
+    products of its rows.  Some torch versions' DTensor has no rule for it
+    (it would run replicated)."""
+
+    def __call__(self, op, args, kwargs):
+        from torch.distributed.tensor import DTensor
+
+        a, b = (reduced(t) for t in _whole(list(args[:2])))
+        dim = (kwargs or {}).get("dim", -1) % a.dim()
+        if a.shape != b.shape:
+            return self.own(op, args, kwargs)
+        target = _alike((a, b), dim)
+        out = op(_laid(a, target).to_local(), _laid(b, target).to_local(), dim=dim)
+        return DTensor.from_local(out, a.device_mesh, target, run_check=False, shape=a.shape,
+                                  stride=_contiguous_stride(a.shape))
 
 
 class _Softmax(_Takes):
@@ -1108,6 +1346,8 @@ def sharded_trace(mesh, handler: Replicated | None = None, ops=()):
     handlers[aten.index_add.default] = handlers[aten.index_add_.default] = _Adds(
         table, fallback)
     handlers[aten._softmax.default] = _Softmax(table, fallback)
+    handlers[aten.stack.default] = handlers[aten.cat.default] = _Join()
+    handlers[aten.linalg_cross.default] = _Cross(table, fallback)
     handlers[aten.index.Tensor] = handlers[aten.index_put_.default] = _RowWise(table, fallback)
     ops.extend(k for k in handlers if k not in view_ops)
     saved_ops = {op: table.get(op) for op in ops}
@@ -1116,11 +1356,12 @@ def sharded_trace(mesh, handler: Replicated | None = None, ops=()):
     for op in ops:
         table[op] = handlers.get(op, handler)
     _forget_layouts()
-    token = _SHARDED.set(mesh)
+    token, issued = _SHARDED.set(mesh), _ISSUED.set({})
     try:
         with set_mesh(mesh), implicit_replication(), _Partitioner():
             yield mesh
     finally:
+        _ISSUED.reset(issued)
         _SHARDED.reset(token)
         _forget_layouts()
         placement_types.shard_dim_alltoall = saved_move

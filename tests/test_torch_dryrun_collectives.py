@@ -24,10 +24,11 @@ Held exactly: Wide & Deep ``serve_p99`` and ``train_batch``, GAT on Cora
 width (``vocab_parallel`` embed and tied logits, ``moe._forward_sharded``
 in fp32 and bf16, each with the plain and the int8 gather); the decode
 cells of qwen2.5-3b and mixtral-8x7b, extrapolated from L=1 and L=2 as
-both dry-runs do, kind for kind but for one all-reduce a layer (the port
-reads a slot's old position back before its write).  qwen2.5-3b
-``train_4k`` and ``prefill_32k`` are printed side by side and held within
-2x of JAX's in total, ``train_4k`` in each large kind too.
+both dry-runs do, kind for kind.  qwen2.5-3b ``train_4k`` and
+``prefill_32k`` are printed side by side and held to JAX's in total
+(``train_4k`` within 0.67-1.5, ``prefill_32k`` within 2x), ``train_4k``
+in each large kind within 2x too; so are NequIP and Equiformer at
+``ogb_products``' widths and edge split (two layers, 8,192 edges).
 """
 
 import json
@@ -51,7 +52,9 @@ CELLS = ["wide-deep/serve_p99", "wide-deep/train_batch", "gat-cora/full_graph_sm
 LM_CELLS = ["qwen2.5-3b/decode_32k", "mixtral-8x7b/decode_32k", "qwen2.5-3b/train_4k",
             "qwen2.5-3b/prefill_32k"]
 EXTRA_KEYS = 1 << 14
-DECODE_BATCH = 128  # the decode_32k cells' batch
+# the edge-split GNN cells: ogb_products' widths, two layers (one leaves the
+# l > 0 irreps dead code, which XLA drops and the trace does not), 8,192 edges
+EDGE = dict(n=2048, e=8192, d_feat=100, n_classes=47, layers=2)
 V, D = 64, 16
 MOE = dict(d_model=16, d_ff=32, n_experts=4, top_k=2)
 MOE_SPECS = [P(None, None), P(None, "data", "model"), P(None, "data", "model"),
@@ -61,8 +64,9 @@ ARMS = ["embed", "tied_logits"] + [f"moe_{dt}_{q}" for dt in ("float32", "bfloat
 
 _SCRIPT = f"""
 CELLS, LM_CELLS, EXTRA_KEYS, V, D, MOE = {CELLS!r}, {LM_CELLS!r}, {EXTRA_KEYS!r}, {V!r}, {D!r}, {MOE!r}
+EDGE = {EDGE!r}
 """ + r"""
-import json, re, sys
+import dataclasses, json, re, sys
 import numpy as np, jax, jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.compat import set_mesh
@@ -100,6 +104,14 @@ for c in CELLS:
     out[c] = record(spec.fn, spec.args, spec.donate)
 spec = cells.rdfizer_shuffle_cell(mesh, EXTRA_KEYS)
 out["rdfizer/shuffle_dedup"] = record(spec.fn, spec.args, spec.donate)
+for arch in ("nequip", "equiformer-v2"):
+    cfg = dataclasses.replace(registry.get_arch(arch).config(), d_in=EDGE["d_feat"],
+                              n_classes=EDGE["n_classes"], task="node_cls", channel_shard=True,
+                              dtype=jnp.bfloat16, n_layers=EDGE["layers"])
+    spec = cells.gnn_train_cell(arch, cfg, mesh, n=EDGE["n"], e=EDGE["e"], d_feat=EDGE["d_feat"],
+                                task="node_cls", n_classes=EDGE["n_classes"], shard_edges=True,
+                                shape_name="ogb_products")
+    out[f"edge/{arch}"] = record(spec.fn, spec.args, spec.donate)
 for c in LM_CELLS:
     for n in (1, 2):
         spec = registry.build_cell(*c.split("/"), mesh, n_layers_override=n)
@@ -180,27 +192,41 @@ def test_cell_collectives_equal_jax(jax_counts, cell):
 
 
 @pytest.mark.parametrize("arch", ["nequip", "equiformer-v2"])
-def test_edge_split_gnn_traces(arch):
+def test_edge_split_gnn_traces(jax_counts, arch, monkeypatch):
     """NequIP and Equiformer at ``ogb_products``' widths and layout (the
-    edges split over the data-parallel axes), one layer, at 8,192 edges:
+    edges split over the data-parallel axes), two layers, at 8,192 edges:
     the per-edge products (NequIP's ``bmm`` of the edge rows by a
     replicated factor, Equiformer's rotations, a constant times the
-    edges' (E, 3, 3)) run on each rank's edge block, and the trace counts
-    the collectives."""
+    edges' (E, 3, 3), the spherical harmonics and frames ``stack``ed) run
+    on each rank's edge block, and the trace counts the collectives,
+    printed beside JAX's and held within 2x of its total (bf16 at
+    XLA:CPU's 4 bytes)."""
     import dataclasses
 
     from repro_torch.configs import cells, registry
 
-    cfg = dataclasses.replace(registry.gnn_cell_config(arch, "ogb_products"), n_layers=1)
+    cfg = dataclasses.replace(registry.gnn_cell_config(arch, "ogb_products"),
+                              n_layers=EDGE["layers"])
 
     def build():
-        return cells.gnn_train_cell(arch, cfg, MESH, n=2048, e=8192, d_feat=100,
-                                    task="node_cls", n_classes=47, shard_edges=True,
+        return cells.gnn_train_cell(arch, cfg, MESH, n=EDGE["n"], e=EDGE["e"],
+                                    d_feat=EDGE["d_feat"], task="node_cls",
+                                    n_classes=EDGE["n_classes"], shard_edges=True,
                                     shape_name="ogb_products")
 
+    monkeypatch.setattr(dryrun, "_tensor_bytes", _xla_cpu_bytes)
     rec = dryrun.sharded_collectives(build, MESH)
     assert set(rec.pop("replicated_for")) <= {"aten.scatter_reduce.two"}
     assert rec["total_bytes"] > 0 and rec["counts"].get("all-reduce", 0) > 0, rec
+    want = jax_counts[f"edge/{arch}"]
+    print(f"\n{arch} ogb_products, edge split, {EDGE['layers']} layers, (4, 2), a device")
+    for kind in sorted(set(rec["bytes_by_kind"]) | set(want["bytes_by_kind"])):
+        print(f"  {kind:18s} JAX {want['bytes_by_kind'].get(kind, 0):>14,d} "
+              f"({want['counts'].get(kind, 0)})  port {rec['bytes_by_kind'].get(kind, 0):>14,d} "
+              f"({rec['counts'].get(kind, 0)})")
+    total = rec["total_bytes"] / want["total_bytes"]
+    print(f"  port / JAX: total {total:.3f}")
+    assert 0.5 <= total <= 2, total
 
 
 def test_shuffle_collectives_equal_jax(jax_counts):
@@ -278,20 +304,11 @@ def test_lm_collectives_side_by_side(jax_counts, cell, monkeypatch):
     if "decode" in cell:
         # FSDP weight gathers, the cache-write and query gathers, the
         # flash-decoding max/sum/output reductions and the row-parallel
-        # reductions, kind for kind; and one all-reduce a layer more: the
-        # port reads each slot's old position back before writing it (JAX's
-        # scatter drops a write out of range, torch has no such write), and
-        # GSPMD's gather over the length-split cache sums the blocks' takes
-        # of the batch's int32 positions
-        from repro_torch.configs import registry
-
-        n_layers = registry.get_arch(cell.split("/")[0]).config().n_layers
-        read_back = DECODE_BATCH // MESH.shape["data"] * 4
-        assert got["bytes_by_kind"] == {
-            **want["bytes_by_kind"],
-            "all-reduce": want["bytes_by_kind"]["all-reduce"] + n_layers * read_back}
-        assert got["counts"] == {**want["counts"],
-                                 "all-reduce": want["counts"]["all-reduce"] + n_layers}
+        # reductions, kind for kind (the slot's position is written where
+        # the row's slot mask holds, on the block that holds it: nothing is
+        # read back)
+        assert got["bytes_by_kind"] == want["bytes_by_kind"]
+        assert got["counts"] == want["counts"]
         return
     total = got["total_bytes"] / want["total_bytes"]
     if "prefill" in cell:
@@ -300,19 +317,20 @@ def test_lm_collectives_side_by_side(jax_counts, cell, monkeypatch):
         print(f"  port / JAX: total {total:.3f}")
         assert 0.5 <= total <= 2, total
         return
-    # train: the total within 2x of JAX's, and each of the three large kinds:
+    # train: the total within 0.67-1.5 of JAX's, each of the three large kinds within 2x:
     # the weight gathers (forward, rematerialized forward and backward), the
     # reductions (all-reduce and reduce-scatter together: XLA's CPU compile
     # reduces a gradient by all-reduce where the port reduce-scatters it to
-    # its parameter's layout) and the backward's all-to-alls (the FFN and
-    # attention cotangents resharded between sequence and feature splits)
+    # its parameter's layout) and the backward's all-to-alls (the FFN
+    # cotangents resharded from the sequence split to the feature split, as
+    # GSPMD reshards them; the attention's once, at its chunk loop's carry)
     by = {k: got["bytes_by_kind"].get(k, 0) / want["bytes_by_kind"][k]
           for k in ("all-gather", "all-to-all")}
     by["reductions"] = (
         (got["bytes_by_kind"]["all-reduce"] + got["bytes_by_kind"].get("reduce-scatter", 0))
         / (want["bytes_by_kind"]["all-reduce"] + want["bytes_by_kind"].get("reduce-scatter", 0)))
     print(f"  port / JAX: total {total:.3f}, " + ", ".join(f"{k} {v:.3f}" for k, v in by.items()))
-    assert 0.5 <= total <= 2, total
+    assert 0.67 <= total <= 1.5, total
     assert all(0.5 <= v <= 2 for v in by.values()), by
 
 
