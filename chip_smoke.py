@@ -148,9 +148,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      NequIP and Equiformer ``ogb_products`` at their full widths and edge
      counts, one layer, traced on the 16x16 mesh (their per-edge ops on
      each rank's edge block: the phase fails on an error or an empty
-     count); mixtral-8x7b ``train_4k``'s collectives on 16x16 held within
-     0.67-1.5 of JAX's (``MIXTRAL_TRAIN_JAX_16X16``, bf16 at XLA:CPU's 4
-     bytes on both sides); no K1-K4 launch;
+     count); mixtral-8x7b ``train_4k``'s and ``prefill_32k``'s (batch
+     waves of 8 rows over 16 data ranks) collectives on 16x16 held within
+     0.67-1.5 of JAX's (``MIXTRAL_JAX_16X16``, bf16 at XLA:CPU's 4 bytes on
+     both sides); no K1-K4 launch;
  21. collectives across ranks (``phase_collectives``): 4 spawned ranks of a
      (2, 2) ``ProcessMesh`` on the one card (``launch.mesh.run_ranks``; gloo
      on CUDA tensors, the ranks sharing the card; backend, world size and
@@ -402,11 +403,13 @@ def max_abs_err(pairs) -> int:
 DRYRUN_CELLS = ("wide-deep/train_batch", "gat-cora/full_graph_sm", "wide-deep/serve_p99")
 DRYRUN_PEAK_RTOL = 0.10  # the traced peak against the card's, of the card's
 EDGE_SPLIT_GNNS = ("nequip", "equiformer-v2")  # ogb_products, traced at one layer
-# JAX's collective bytes a device for mixtral-8x7b train_4k on the 16x16 mesh
-# (scripts/collectives_vs_jax.py --mesh single, on the CPU, bf16 at XLA:CPU's
-# 4 bytes; extrapolated from L=1 and L=2), and the band the port's is held to
-MIXTRAL_TRAIN_JAX_16X16 = 593_539_565_360
-TRAIN_VS_JAX = (0.67, 1.5)
+# JAX's collective bytes a device for mixtral-8x7b train_4k and prefill_32k
+# (its batch of 32 in 4 waves of 8 rows, fewer than the 16 data ranks) on
+# the 16x16 mesh (scripts/collectives_vs_jax.py --mesh single, on the CPU,
+# bf16 at XLA:CPU's 4 bytes; extrapolated from L=1 and L=2), and the band
+# the port's are held to
+MIXTRAL_JAX_16X16 = {"train_4k": 593_539_565_360, "prefill_32k": 881_680_312_320}
+VS_JAX = (0.67, 1.5)
 
 
 def phase_dryrun(kernel_mods):
@@ -501,7 +504,8 @@ def phase_dryrun_faults(pod) -> None:
     """Phase 20's sharded traces that once failed or strayed from JAX's on
     this torch: NequIP and Equiformer ``ogb_products`` (one layer at full
     width and edge count, the edges split over the data axes) counted on
-    16x16, and mixtral-8x7b ``train_4k``'s total there against JAX's."""
+    16x16, and mixtral-8x7b ``train_4k``'s and ``prefill_32k``'s totals
+    there against JAX's."""
     import dataclasses
 
     import torch
@@ -534,22 +538,22 @@ def phase_dryrun_faults(pod) -> None:
         return sum(t.numel() * (4 if t.dtype == torch.bfloat16 else t.element_size())
                    for t in tree_leaves(x) if isinstance(t, torch.Tensor))
 
-    held, dryrun._tensor_bytes = dryrun._tensor_bytes, xla_cpu_bytes
-    t0 = time.perf_counter()
-    try:
-        res = dryrun.cell_collectives("mixtral-8x7b", "train_4k", pod)
-    finally:
-        dryrun._tensor_bytes = held
-    got = res["collectives"]["total_bytes"]
-    ratio = got / MIXTRAL_TRAIN_JAX_16X16
-    log(f"dry-run mixtral-8x7b/train_4k@single_pod_16x16 (bf16 at XLA:CPU's 4 bytes): port "
-        f"{got:,} B a device against JAX's {MIXTRAL_TRAIN_JAX_16X16:,} B, port / JAX "
-        f"{ratio:.3f} (" + ", ".join(f"{k} {v:,}" for k, v in sorted(
-            res["collectives"]["bytes_by_kind"].items())) +
-        f"), sharded traces {time.perf_counter() - t0:.1f} s")
-    check(TRAIN_VS_JAX[0] <= ratio <= TRAIN_VS_JAX[1],
-          f"mixtral-8x7b/train_4k@single_pod_16x16: port / JAX {ratio:.3f} outside "
-          f"{TRAIN_VS_JAX}")
+    for shape_name, want in MIXTRAL_JAX_16X16.items():
+        held, dryrun._tensor_bytes = dryrun._tensor_bytes, xla_cpu_bytes
+        t0 = time.perf_counter()
+        try:
+            res = dryrun.cell_collectives("mixtral-8x7b", shape_name, pod)
+        finally:
+            dryrun._tensor_bytes = held
+        got = res["collectives"]["total_bytes"]
+        ratio = got / want
+        log(f"dry-run mixtral-8x7b/{shape_name}@single_pod_16x16 (bf16 at XLA:CPU's 4 bytes): "
+            f"port {got:,} B a device against JAX's {want:,} B, port / JAX {ratio:.3f} (" +
+            ", ".join(f"{k} {v:,}" for k, v in sorted(res["collectives"]["bytes_by_kind"].items()))
+            + f"), sharded traces {time.perf_counter() - t0:.1f} s")
+        check(VS_JAX[0] <= ratio <= VS_JAX[1],
+              f"mixtral-8x7b/{shape_name}@single_pod_16x16: port / JAX {ratio:.3f} outside "
+              f"{VS_JAX}")
 
 
 def log_collectives(cell: str, mesh_name: str, res: dict) -> None:

@@ -10,7 +10,7 @@ The counterpart of ``benchmarks/roofline.py``.  For each ``ok`` cell of
 ``flops`` and ``bytes_accessed`` are a fake-tensor trace's, split evenly
 over the mesh's devices on the accounting meshes; the collective bytes are
 the sharded trace's, one device's program (``collectives.total_bytes``, by
-JAX's rule: each collective's larger of operand and result bytes).
+JAX's rule as it reads XLA's text: each collective's result bytes).
 ``bytes_accessed`` is an unfused upper bound, so a second bound leaves the
 memory term out (compute or collective), as ``benchmarks/roofline.py``
 brackets it.  ``MODEL_FLOPS`` keeps JAX's accounting: train 6·N·D, prefill

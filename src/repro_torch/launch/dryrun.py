@@ -36,9 +36,10 @@ rank 0 of a fake process group of the mesh's size
 DTensors laid out by their specs, every op propagated by DTensor's rules,
 the shard_map arms on their local blocks (``models.sharding``).
 ``Collectives`` sees every collective that program issues and files it
-under XLA's kind by JAX's byte rule: the larger of its operand and result
-bytes, lists summed (``collective_bytes``'s rule); a group of one rank
-moves nothing and is not counted, as XLA drops it.  An op DTensor has no
+under XLA's kind by JAX's byte rule: its result's bytes, lists summed
+(``collective_bytes`` takes the larger of an op's shapes, and XLA's text
+shapes only the result: a reduce-scatter counts the rank's shard); a group
+of one rank moves nothing and is not counted, as XLA drops it.  An op DTensor has no
 sharding rule for runs on replicated inputs, and ``replicated_for`` names
 it with its calls.  A scanned LM counts from unrolled L=1 and L=2 sharded
 traces, extrapolated as JAX does (``cost_method`` says so); every other
@@ -122,6 +123,9 @@ _KINDS = {
     "c10d::reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "c10d::alltoall_base_": "all-to-all", "c10d::alltoall_": "all-to-all",
     "_dtensor::shard_dim_alltoall": "all-to-all",
+    # a rank's receive of another's block: XLA's collective-permute (the
+    # sender's half is its own program's)
+    "c10d::recv_": "collective-permute",
 }
 for _ns in ("_c10d_functional", "_c10d_functional_autograd"):
     _KINDS.update({
@@ -165,10 +169,12 @@ def _group_size(args) -> int | None:
 
 class Collectives(TorchDispatchMode):
     """Counts the collectives a program issues, per device, by JAX's rule
-    (``collective_bytes``): each one filed under XLA's kind, its bytes the
-    larger of its operand and result bytes (lists summed).  A c10d op
-    writes its results into its first argument and reads its second (the
-    one tensor list of an all-reduce); a functional one returns them.  An
+    (``collective_bytes``): each one filed under XLA's kind, its bytes its
+    result's (lists summed).  JAX's parser takes the larger of an op's
+    result and operand shapes, but XLA's partitioned HLO text gives only
+    the result a shape, so it counts results: the gathered block of an
+    all-gather, the rank's shard of a reduce-scatter.  A c10d op writes its
+    results into its first argument; a functional one returns them.  An
     op on DTensors passes to DTensor first, so the collectives it lowers
     to are the ones seen.  A collective over one rank moves nothing and is
     not counted (XLA drops it); one of no known kind raises."""
@@ -192,12 +198,9 @@ class Collectives(TorchDispatchMode):
             raise ValueError(f"collective {name} has no XLA kind to count it under")
         if _group_size(args) == 1:
             return out
-        if name.startswith("c10d::"):
-            operand, result = (args[1] if len(args) > 1 else None), args[0]
-        else:
-            operand, result = args[0], out
+        result = args[0] if name.startswith("c10d::") else out
         kind = _KINDS[name]
-        nbytes = max(_tensor_bytes(operand), _tensor_bytes(result))
+        nbytes = _tensor_bytes(result)
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
         self.counts[kind] = self.counts.get(kind, 0) + 1
         return out

@@ -39,13 +39,18 @@ blocks (``enter``) and leave by their out-specs (``leave``), as
 ``shard_map`` does.  Where GSPMD partitions an op otherwise than DTensor
 would, the trace partitions it as GSPMD does, and the model code carries
 only JAX's own constraints: a torch-function mode (``_Partitioner``) takes
-the products with a weight (FSDP's gather at use and in the backward, the
-row-parallel sums reduced where made, the backward's transposed dots laid
-out as the forward's operand whose cotangent they make), two-operand
-``einsum`` on each rank's blocks, and ``logsumexp``/``gather`` over a
-split vocabulary; DTensor op handlers take views, ``stack``, gathers and
-scatters by indices, the softmax over a length-split cache (the
-flash-decoding combine) and the cache's slot reads and writes.  A loop's
+the products with a weight (FSDP's gather at use, once a trace in a
+program without gradients, and in the backward, the row-parallel sums
+reduced where made, the backward's transposed dots laid out as the
+forward's operand whose cotangent they make), two-operand ``einsum`` on
+each rank's blocks, and ``logsumexp``/``gather`` over a split vocabulary;
+DTensor op handlers take views, ``stack``, gathers and scatters by
+indices, the softmax over a length-split cache (the flash-decoding
+combine), the cache's slot reads and writes, and one position sliced
+from a split dim (a collective-permute).  A constraint whose axes do not
+divide a dim pads it, as GSPMD does (rank 0 holds the padded block), and
+a batch of waves too small for the data axes is laid out as GSPMD lays
+it (``_block_view``).  A loop's
 ``carry`` keeps its layout in the backward, as a ``lax.scan`` carry does,
 and an arm's gather of a block already gathered in the step is not issued
 again, as XLA's CSE merges it.  The handlers act alike in every torch
@@ -148,15 +153,18 @@ def arms_active() -> bool:
 def constrain(x, spec: P):
     """JAX's sharding constraint: in a sharded trace, ``x`` redistributed to
     ``spec`` (axes the mesh lacks dropped, as JAX drops them; a dim its
-    axes do not divide is left whole, as the arms' ``token_spec`` leaves a
-    small batch, where GSPMD would pad it).  Otherwise the identity:
-    outside the explicit arms every rank computes on its own block."""
+    axes do not divide is split all the same, padded as GSPMD pads it: a
+    rank holds the ceiling of its share, the first ranks the rows, so the
+    block the trace counts, rank 0's, is the padded one).  Otherwise the
+    identity: outside the explicit arms every rank computes on its own
+    block."""
     if not is_distributed(x):
         return x
     mesh = _SHARDED.get()
     spec = _present(spec, mesh)
-    spec = P(*(part if x.shape[d] % math.prod(mesh.shape[a] for a in _axes(part)) == 0
-               else None for d, part in enumerate(spec)))
+    if any(x.shape[d] % math.prod(mesh.shape[a] for a in _axes(part))
+           for d, part in enumerate(spec)):
+        _PADS.get()["seen"] = True  # DTensor keeps padded splits from here on
     return _Constrain.apply(x, placements(spec, mesh))
 
 
@@ -426,6 +434,9 @@ def all_gather(x: torch.Tensor, axes, axis: int = 0, mesh=None) -> torch.Tensor:
 # -- the sharded trace: GSPMD's counterpart by DTensor --------------------------
 
 _SHARDED: contextvars.ContextVar = contextvars.ContextVar("repro_torch_sharded", default=None)
+# a sharded trace's record of a constraint that padded a split (DTensor then
+# keeps splits its ranks outnumber, as GSPMD keeps its padded ones)
+_PADS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_pads", default=None)
 
 
 def is_distributed(x) -> bool:
@@ -525,10 +536,12 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM, "max": dist.R
 def _redistribute(x, target: list):
     """``x`` (a DTensor) laid out by ``target``, a partial sum over several
     axes reduced in one all-reduce over their flattened group, as XLA
-    reduces it (DTensor reduces one axis at a time)."""
+    reduces it (DTensor reduces one axis at a time), and over one axis to a
+    split by one reduce-scatter (``_Scattered``)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     mesh = _SHARDED.get()
+    x = _unpadded(x, target)
     done = [p.is_partial() and not t.is_partial() for p, t in zip(x.placements, target)]
     if sum(done) > 1:
         names = tuple(a for a, d in zip(mesh.axis_names, done) if d)
@@ -539,7 +552,71 @@ def _redistribute(x, target: list):
         x = DTensor.from_local(y, x.device_mesh,
                                [Replicate() if d else p for p, d in zip(x.placements, done)],
                                run_check=False, shape=x.shape, stride=x.stride())
-    return x.redistribute(x.device_mesh, target)
+    for i, (p, t) in enumerate(zip(x.placements, target)):
+        if (p.is_partial() and p.reduce_op == "sum" and t.is_shard()
+                and not any(q.is_shard(t.dim) for q in x.placements)
+                and x.to_local().shape[t.dim] % x.device_mesh.size(i) == 0):
+            x = _Scattered.apply(x, i, t.dim)
+    return _moved_together(x, target).redistribute(x.device_mesh, target)
+
+
+def _moved_together(x, target: list):
+    """``x`` with a split that several mesh dims move from one tensor dim to
+    another at once (a wave's sequence split over ``pod`` and ``data``
+    padded onto its rows) moved by one all-to-all over their flattened
+    group, as XLA moves it (DTensor moves one mesh dim at a time, through
+    gathers); the block is rank 0's of the new layout (padded where the
+    axes outnumber the dim)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    moves = {(p.dim, t.dim) for p, t in zip(x.placements, target)
+             if p.is_shard() and t.is_shard() and p.dim != t.dim}
+    dims = [i for i, (p, t) in enumerate(zip(x.placements, target))
+            if p.is_shard() and t.is_shard() and p.dim != t.dim]
+    if len(moves) != 1 or len(dims) < 2:
+        return x
+    (a, b), = moves
+    if any(p.is_shard(b) or (p.is_shard(a) and i not in dims) for i, p in enumerate(x.placements)):
+        return x
+    mesh = _SHARDED.get()
+    block = x.to_local()
+    ways = math.prod(x.device_mesh.size(i) for i in dims)
+    _a2a(block.new_empty(ways * math.ceil(block.numel() / ways)),
+         mesh.group(tuple(mesh.axis_names[i] for i in dims)))
+    shape = list(block.shape)
+    shape[a] = x.shape[a]
+    shape[b] = x.shape[b]
+    for i in dims:  # rank 0 holds the first chunk: the ceiling, a mesh dim at a time
+        shape[b] = -(-shape[b] // x.device_mesh.size(i))
+    return DTensor.from_local(block.new_empty(shape), x.device_mesh,
+                              [Shard(b) if i in dims else p for i, p in enumerate(x.placements)],
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+class _Scattered(torch.autograd.Function):
+    """A partial sum over mesh dim ``i`` reduce-scattered along ``dim``: one
+    reduce-scatter in every torch version (some reduce the whole and slice
+    it).  Its transpose gathers the cotangent over the dim (each rank's
+    partial takes the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, i, dim):
+        from torch.distributed.tensor import DTensor, Shard
+
+        ctx.placements = x.placements
+        mesh = _SHARDED.get()
+        block = _scatter0(x.to_local().movedim(dim, 0), x.device_mesh.size(i),
+                          mesh.group(mesh.axis_names[i])).movedim(0, dim)
+        return DTensor.from_local(block, x.device_mesh,
+                                  [Shard(dim) if k == i else q for k, q in enumerate(x.placements)],
+                                  run_check=False, shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        return _laid(g, [Replicate() if p.is_partial() else q
+                         for p, q in zip(ctx.placements, g.placements)]), None, None
 
 
 def like(g, p):
@@ -617,13 +694,15 @@ def _matmul(a, b):
     if not (is_distributed(a) or is_distributed(b)) or (a.dim(), b.dim()) not in _MATMUL:
         return NotImplemented
     if is_distributed(a) and is_distributed(b) and b.dim() == 2 and a.dim() > 1:
-        return _Dot.apply(reduced(a), b)
+        return _Dot.apply(reduced(a), b, not torch.is_grad_enabled())
     return _dot_of(_MATMUL[a.dim(), b.dim()], a, b)
 
 
 class _Dot(torch.autograd.Function):
     """``x @ w`` (``x`` of 2 or 3 dims, ``w`` a 2-D weight) as GSPMD partitions it.
-    Forward: the weight gathered at its use (``_fsdp_use``), the activation
+    Forward: the weight gathered at its use (``_fsdp_use``; with ``once``,
+    a program without gradients, once a trace a weight, as XLA's CSE keeps
+    one gather a weight for a prefill's unrolled waves), the activation
     gathered where an axis serves the weight (``_for_product``), each
     rank's product of its blocks, and its partial sum reduced where it is
     made.  Backward, as GSPMD partitions the transposed dots by their
@@ -634,10 +713,11 @@ class _Dot(torch.autograd.Function):
     cotangent sums over the rows and is reduced to the weight's layout."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, once):
         ctx.save_for_backward(x, w)
         rows = "bs"[:x.dim() - 1]
-        wu = _fsdp_use(w)
+        wu = (_once(("use", tuple(w.placements)), w.to_local(), lambda: _fsdp_use(w),
+                    fresh=False) if once else _fsdp_use(w))
         return reduced(_blocks_dot(f"{rows}k,kn->{rows}n", _for_product(x, wu), wu))
 
     @staticmethod
@@ -648,7 +728,7 @@ class _Dot(torch.autograd.Function):
         gx = reduced(_blocks_dot(f"{rows}n,kn->{rows}k", g, w))
         gw = _redistribute(_blocks_dot(f"{rows}k,{rows}n->kn", x, g, list(w.placements)),
                            list(w.placements))
-        return gx, gw
+        return gx, gw, None
 
 
 def _blocks_dot(equation: str, a, b, keep=None):
@@ -658,7 +738,8 @@ def _blocks_dot(equation: str, a, b, keep=None):
     left split, split alike in the operand that holds it whole (a slice,
     free); then each rank's einsum of its blocks, the output split along
     the label where it keeps it, a partial sum where the label is summed.
-    A label its axis does not divide is gathered (GSPMD would pad it).
+    A label its axis does not divide is gathered, unless an operand holds
+    it split so already (padded, as ``constrain`` pads it): it stays.
 
     ``keep`` (a transposed dot's: the placements of the forward operand
     whose cotangent it makes) is the output's layout where sharding
@@ -681,6 +762,7 @@ def _blocks_dot(equation: str, a, b, keep=None):
     for qa, qb, n, want in zip(a.placements, b.placements, mesh.shape, keep):
         ca = la[qa.dim] if qa.is_shard() else None
         cb = lb[qb.dim] if qb.is_shard() else None
+        held = (ca, cb)
         summed = ca if ca and ca == cb and ca not in lo else None
         if ca and cb and ca != cb:
             ca, cb = (None, cb) if a_small else (ca, None)
@@ -688,7 +770,7 @@ def _blocks_dot(equation: str, a, b, keep=None):
         kept = lo[want.dim] if want.is_shard() and not summed else None
         if kept and sizes[kept] % n == 0:
             label = kept
-        if label and sizes[label] % n:
+        if label and sizes[label] % n and label not in held:
             label = None
         pa.append(Shard(la.index(label)) if label and label in la else Replicate())
         pb.append(Shard(lb.index(label)) if label and label in lb else Replicate())
@@ -866,6 +948,39 @@ class _Einsum(torch.autograd.Function):
         return None, ga, gb
 
 
+def _add(a, b, **kwargs):
+    """``a + b`` of tensors of one shape laid out alike but for partial sums,
+    one of them whole where the other is partial: the sum stays partial,
+    each rank's blocks added (the whole one counted on the axes' first
+    rank, the trace's rank 0), where some torch versions' DTensor reduces
+    the partial first and others keep it."""
+    if kwargs or not (is_distributed(a) and is_distributed(b)) or a.shape != b.shape:
+        return NotImplemented
+    out = []
+    for p, q in zip(a.placements, b.placements):
+        if p != q and not (p.is_partial() and q.is_replicate()
+                           or q.is_partial() and p.is_replicate()):
+            return NotImplemented
+        out.append(p if p.is_partial() else q)
+    if not any(p.is_partial() for p in out) or any(
+            p.is_partial() and p.reduce_op != "sum" for p in out):
+        return NotImplemented
+    return _SumOfPartials.apply(a, b, out)
+
+
+class _SumOfPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, out):
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(a.to_local() + b.to_local(), a.device_mesh, out,
+                                  run_check=False, shape=a.shape, stride=a.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g, None
+
+
 def _host_read(x):
     """``bool`` of a fake tensor: a flag the trace does not carry, read as
     True (a loop that waits on it ends after the round it has run)."""
@@ -881,6 +996,7 @@ _RULES = {
     torch.gather: _gather, torch.Tensor.gather: _gather,
     torch.einsum: _einsum,
     torch.mean: _mean, torch.Tensor.mean: _mean, torch.var: _var, torch.Tensor.var: _var,
+    torch.add: _add, torch.Tensor.add: _add, torch.Tensor.__add__: _add,
     torch.Tensor.__bool__: _host_read,
 }
 
@@ -889,7 +1005,7 @@ class _Partitioner(TorchFunctionMode):
     """GSPMD's choices where DTensor's own rule would lay out or move
     tensors otherwise, for the calls in ``_RULES``: a matmul (a product with
     a 2-D weight, and its backward), ``logsumexp``, ``gather``, ``mean`` and
-    ``var`` along a split last dim, a
+    ``var`` along a split last dim, a sum with a partial sum, a
     two-operand ``einsum`` split along different labels, and a host read
     of a flag.  Every other call runs as it is."""
 
@@ -1000,16 +1116,106 @@ def _strided(out) -> bool:
                for p in o.placements)
 
 
+def _groups(a, b) -> list | None:
+    """The dims of two shapes of one size in the runs a view maps onto each
+    other: ``[(in dims, out dims)]``, each pair of runs of one product (a
+    view splits or merges dims only within a run); None where they do not
+    meet."""
+    groups, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        ii, jj, pa, pb = [i], [j], a[i], b[j]
+        i, j = i + 1, j + 1
+        while pa != pb:
+            if pa < pb and i < len(a):
+                pa, i = pa * a[i], i + 1
+                ii.append(i - 1)
+            elif pb < pa and j < len(b):
+                pb, j = pb * b[j], j + 1
+                jj.append(j - 1)
+            else:
+                return None
+        groups.append((ii, jj))
+    if (i < len(a) or j < len(b)) and not groups:
+        return None
+    for k in range(i, len(a)):  # trailing 1s
+        groups[-1][0].append(k)
+    for k in range(j, len(b)):
+        groups[-1][1].append(k)
+    return groups
+
+
+_DP_AXES = ("pod", "data")
+
+
+def _block_view(x, size, laid_out_only: bool = False):
+    """``x.view(size)`` done on this rank's block, or None: each split dim
+    kept as one dim of the view (the block viewed alike, version-
+    independent where DTensor's rules differ on a padded split), or a dim
+    split over the data-parallel axes alone cut into an outer dim they do
+    not divide and an inner one they do (a batch of waves' rows and
+    sequence: GSPMD splits the rows over the part of the axes that divides
+    them and the sequence over the rest, which DTensor cannot place on one
+    mesh axis; the trace holds it as the sequence split over all of them,
+    a block of the same elements, free, as the view is in GSPMD).  With
+    ``laid_out_only``, None unless ``x`` is padded or the view cuts such a
+    batch (DTensor's own rule then decides the rest)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    size = list(size)
+    if -1 in size:
+        size[size.index(-1)] = x.numel() // -math.prod(size)
+    groups = _groups(tuple(x.shape), tuple(size))
+    if groups is None:
+        return None
+    where = {d: (ii, jj) for ii, jj in groups for d in ii}
+    names = x.device_mesh.mesh_dim_names
+    out, local = [], list(size)
+    for i, p in enumerate(x.placements):
+        if not p.is_shard():
+            out.append(p)
+            continue
+        ii, jj = where[p.dim]
+        jj = [j for j in jj if size[j] != 1] or jj
+        if ii == [p.dim] and len(jj) == 1:
+            out.append(Shard(jj[0]))
+            local[jj[0]] = x.to_local().shape[p.dim]
+            continue
+        ways = math.prod(x.device_mesh.size(k) for k, q in enumerate(x.placements)
+                         if q == p)
+        axes = [names[k] for k, q in enumerate(x.placements) if q == p]
+        if (ii != [p.dim] or len(jj) != 2 or size[jj[0]] % ways == 0 or size[jj[1]] % ways
+                or x.shape[p.dim] % ways or not set(axes) <= set(_DP_AXES)):
+            return None
+        out.append(Shard(jj[1]))
+        local[jj[1]] = size[jj[1]] // ways
+        laid_out_only = False
+    if laid_out_only and not _padded(x):
+        return None
+    block = x.to_local()
+    if math.prod(local) != block.numel():
+        return None
+    shape = torch.Size(size)
+    return DTensor.from_local(block.reshape(local), x.device_mesh, out, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+_VIEWS_BY_SIZE = ("aten.view.default", "aten._unsafe_view.default")
+
+
 class _Views:
     """The handler a sharded trace gives DTensor for views (and selecting,
     squeezing, unbinding): DTensor's own, and where it refuses one (a dim
     split unevenly by its axes: heads fewer than the ``model`` ranks, a
     batch of waves; a split dim selected or squeezed away) or would give a
     strided shard (a merge of dims whose inner one is split, which some
-    torch versions refuse), the axes that split the tensor gathered over
-    one at a time, the innermost dim's first, until it takes the view
-    (GSPMD reshards such a tensor).  The backward's views take the same
-    path."""
+    torch versions refuse), GSPMD's reshard: a batch of waves' rows cut
+    from a dim split over the data-parallel axes laid out as GSPMD lays
+    them, and a view that keeps a padded split taken on the blocks
+    (``_block_view``, free; both before DTensor's rule, alike in every
+    torch version);
+    else the axes that split the tensor gathered over one at a time, the
+    innermost dim's first (a padded split rematerialized, ``_remat``),
+    until it takes the view.  The backward's views take the same path."""
 
     def __init__(self, table):
         self.table = table
@@ -1018,6 +1224,11 @@ class _Views:
         from torch.distributed.tensor import DTensor, Replicate
 
         x, rest = args[0], args[1:]
+        by_size = str(op) in _VIEWS_BY_SIZE
+        if by_size:  # before DTensor's rule, which differs between torch versions here
+            out = _block_view(x, rest[0], laid_out_only=True)
+            if out is not None:
+                return out
         held = self.table.pop(op)
         try:
             while True:
@@ -1035,11 +1246,18 @@ class _Views:
                                            run_check=False, shape=x.shape,
                                            stride=_contiguous_stride(x.shape))
                     continue
+                out = _block_view(x, rest[0]) if by_size else None
+                if out is not None:
+                    return out
                 split = [i for i, p in enumerate(x.placements) if p.is_shard()]
                 if not split:
                     raise error
+                inner = max(split, key=lambda i: (x.placements[i].dim, i))
+                if inner in _padded(x):
+                    x = _remat(x, [inner])
+                    continue
                 target = list(x.placements)
-                target[max(split, key=lambda i: (x.placements[i].dim, i))] = Replicate()
+                target[inner] = Replicate()
                 x = x.redistribute(x.device_mesh, target)
         finally:
             self.table[op] = held
@@ -1251,6 +1469,49 @@ class _Softmax(_Takes):
                                   shape=x.shape, stride=x.stride())
 
 
+def _receive(piece: torch.Tensor, names: tuple, src: int) -> torch.Tensor:
+    """XLA's collective-permute into this rank: ``piece``'s shape received
+    from position ``src`` of the group over ``names``."""
+    group = _SHARDED.get().group(names)
+    buf = torch.empty_like(piece)
+    dist.recv(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf
+
+
+class _Slice(_Takes):
+    """The handler for ``x[..., i:i + 1, ...]``, one position along a dim
+    split evenly over mesh axes (the last position of a sequence-split
+    hidden state), as GSPMD partitions it: the position taken from the
+    block that holds it and moved to the axes' first rank by a
+    collective-permute, that rank holding the one-position result (the
+    others its padding).  Any other slice, DTensor's own rule (a split dim
+    gathered)."""
+
+    def __call__(self, op, args, kwargs):
+        from torch.distributed.tensor import DTensor
+
+        x, dim, start, end, step = (*args, *(0, None, None, 1)[len(args) - 1:])[:5]
+        dim %= x.dim()
+        n = x.shape[dim]
+        start = 0 if start is None else start + n if start < 0 else start
+        end = n if end is None else min(end + n if end < 0 else end, n)
+        names = tuple(a for a, p in zip(x.device_mesh.mesh_dim_names, x.placements)
+                      if p.is_shard(dim))
+        ways = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                         if p.is_shard(dim))
+        if (kwargs or step != 1 or end - start != 1 or not names or n % ways
+                or any(p.is_partial() for p in x.placements)):
+            return self.own(op, args, kwargs)
+        block = n // ways
+        piece = x.to_local().narrow(dim, start % block, 1)
+        if start // block:
+            piece = _receive(piece, names, start // block)
+        shape = list(x.shape)
+        shape[dim] = 1
+        return DTensor.from_local(piece, x.device_mesh, x.placements, run_check=False,
+                                  shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
 class _RowWise(_Takes):
     """The handlers for a row-wise access by several index tensors (``x[rows,
     cols]``, the first index a batch's rows in order, as a decode cache's
@@ -1300,7 +1561,46 @@ class _RowWise(_Takes):
 
 def _laid(x, target: list):
     """The DTensor ``x`` redistributed to ``target`` where it lies otherwise."""
-    return x if list(x.placements) == target else x.redistribute(x.device_mesh, target)
+    if list(x.placements) == target:
+        return x
+    return _unpadded(x, target).redistribute(x.device_mesh, target)
+
+
+def _padded(x) -> list:
+    """The mesh dims of the DTensor ``x`` that split a dim unevenly (GSPMD's
+    padding: a rank holds the ceiling of its share)."""
+    ways = {}
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            ways[p.dim] = ways.get(p.dim, 1) * x.device_mesh.size(i)
+    return [i for i, p in enumerate(x.placements)
+            if p.is_shard() and x.shape[p.dim] % ways[p.dim]]
+
+
+def _remat(x, dims: list):
+    """XLA's rematerialization of a padded layout: each rank's block written
+    into zeros of the whole and all-reduced over the mesh dims ``dims`` (and
+    the others that split the same tensor dims), which then hold the
+    tensor dims whole."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    tdims = {x.placements[i].dim for i in dims}
+    dims = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim in tdims]
+    mesh = _SHARDED.get()
+    shape = [n if d in tdims else m for d, (n, m) in enumerate(zip(x.shape, x.to_local().shape))]
+    whole = _reduce(x.to_local().new_zeros(shape), dist.ReduceOp.SUM,
+                    mesh.group(tuple(mesh.axis_names[i] for i in dims)))
+    return DTensor.from_local(whole, x.device_mesh,
+                              [Replicate() if i in dims else p for i, p in enumerate(x.placements)],
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def _unpadded(x, target: list):
+    """``x`` with each padded split that ``target`` does not keep
+    rematerialized (``_remat``), where DTensor would gather the padded
+    blocks (the padding moved too)."""
+    drop = [i for i in _padded(x) if target[i] != x.placements[i]]
+    return _remat(x, drop) if drop else x
 
 
 def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
@@ -1310,6 +1610,30 @@ def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
     group = mesh.get_group(mesh_dim)
     return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
                                                  group.group_name)
+
+
+def _shardable_checks() -> list:
+    """DTensor's modules that hold its ``is_tensor_shardable`` check (a
+    split its ranks outnumber is refused), with the check."""
+    import sys
+
+    return [(m, m.is_tensor_shardable) for name, m in list(sys.modules.items())
+            if name.startswith("torch.distributed.tensor") and m is not None
+            and callable(getattr(m, "is_tensor_shardable", None))]
+
+
+def _keeps_padding(check, pads: dict):
+    """DTensor's shardability check, with a split its ranks outnumber
+    allowed once a constraint of the trace has padded one: GSPMD pads such
+    a split, where DTensor would move the tensor off it (a pointwise op of
+    a padded block and a replicated one resharded)."""
+
+    def shardable(shape, spec, *args, **kwargs):
+        if pads and all(p.dim < len(shape) for p in spec.placements if p.is_shard()):
+            return True
+        return check(shape, spec, *args, **kwargs)
+
+    return shardable
 
 
 def _forget_layouts() -> None:
@@ -1349,18 +1673,26 @@ def sharded_trace(mesh, handler: Replicated | None = None, ops=()):
     handlers[aten.stack.default] = handlers[aten.cat.default] = _Join()
     handlers[aten.linalg_cross.default] = _Cross(table, fallback)
     handlers[aten.index.Tensor] = handlers[aten.index_put_.default] = _RowWise(table, fallback)
+    handlers[aten.slice.Tensor] = _Slice(table, fallback)
     ops.extend(k for k in handlers if k not in view_ops)
     saved_ops = {op: table.get(op) for op in ops}
     saved_move = placement_types.shard_dim_alltoall
     placement_types.shard_dim_alltoall = _shard_dim_alltoall
+    pads = {}
+    checks = _shardable_checks()
+    for module, check in checks:
+        module.is_tensor_shardable = _keeps_padding(check, pads)
     for op in ops:
         table[op] = handlers.get(op, handler)
     _forget_layouts()
-    token, issued = _SHARDED.set(mesh), _ISSUED.set({})
+    token, issued, padded = _SHARDED.set(mesh), _ISSUED.set({}), _PADS.set(pads)
     try:
         with set_mesh(mesh), implicit_replication(), _Partitioner():
             yield mesh
     finally:
+        for module, check in checks:
+            module.is_tensor_shardable = check
+        _PADS.reset(padded)
         _ISSUED.reset(issued)
         _SHARDED.reset(token)
         _forget_layouts()

@@ -28,7 +28,11 @@ both dry-runs do, kind for kind.  qwen2.5-3b ``train_4k`` and
 ``prefill_32k`` are printed side by side and held to JAX's in total
 (``train_4k`` within 0.67-1.5, ``prefill_32k`` within 2x), ``train_4k``
 in each large kind within 2x too; so are NequIP and Equiformer at
-``ogb_products``' widths and edge split (two layers, 8,192 edges).
+``ogb_products``' widths and edge split (two layers, 8,192 edges).  The
+prefill of qwen2.5-3b's smoke width at sequence 64 in batch waves
+(batch / microbatches 8/1, 16/4 and 8/4: the 8/4 waves of 2 rows do not
+split over the 4 ``data`` ranks) is held within 2x of JAX's in total, the
+uneven waves no further from JAX's than the even ones.
 """
 
 import json
@@ -61,16 +65,18 @@ MOE_SPECS = [P(None, None), P(None, "data", "model"), P(None, "data", "model"),
              P(None, "model", "data"), P("data", None, None)]
 ARMS = ["embed", "tied_logits"] + [f"moe_{dt}_{q}" for dt in ("float32", "bfloat16")
                                    for q in ("plain", "int8")]
+# the smoke prefill in waves: (batch, microbatches) at sequence 64
+WAVES, WAVE_SEQ = [(8, 1), (16, 4), (8, 4)], 64
 
 _SCRIPT = f"""
 CELLS, LM_CELLS, EXTRA_KEYS, V, D, MOE = {CELLS!r}, {LM_CELLS!r}, {EXTRA_KEYS!r}, {V!r}, {D!r}, {MOE!r}
-EDGE = {EDGE!r}
+EDGE, WAVES, WAVE_SEQ = {EDGE!r}, {WAVES!r}, {WAVE_SEQ!r}
 """ + r"""
 import dataclasses, json, re, sys
 import numpy as np, jax, jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.compat import set_mesh
-from repro.configs import cells, registry
+from repro.configs import cells, qwen2_5_3b, registry
 from repro.launch.dryrun import _tensor_bytes, collective_bytes
 from repro.launch.mesh import make_local_mesh
 from repro.models import moe, vocab_parallel
@@ -116,6 +122,12 @@ for c in LM_CELLS:
     for n in (1, 2):
         spec = registry.build_cell(*c.split("/"), mesh, n_layers_override=n)
         out[f"{c}/{n}"] = record(spec.fn, spec.args, spec.donate)
+# the layers unrolled, as the port runs them (a scanned compile holds the
+# layer body once)
+for b, mb in WAVES:
+    cfg = dataclasses.replace(qwen2_5_3b.smoke_config(), microbatches=mb, scan_layers=False)
+    spec = cells.lm_prefill_cell(cfg, mesh, b, WAVE_SEQ, unroll_accum=True)
+    out[f"waves/{b}/{mb}"] = record(spec.fn, spec.args)
 
 f32 = jnp.float32
 out["embed"] = record(vocab_parallel.embed, [sds((V, D), f32, P("model", "data")),
@@ -332,6 +344,119 @@ def test_lm_collectives_side_by_side(jax_counts, cell, monkeypatch):
     print(f"  port / JAX: total {total:.3f}, " + ", ".join(f"{k} {v:.3f}" for k, v in by.items()))
     assert 0.67 <= total <= 1.5, total
     assert all(0.5 <= v <= 2 for v in by.values()), by
+
+
+def _print_kinds(title: str, got: dict, want: dict) -> None:
+    print(f"\n{title}")
+    for kind in sorted(set(got["bytes_by_kind"]) | set(want["bytes_by_kind"])):
+        print(f"  {kind:18s} JAX {want['bytes_by_kind'].get(kind, 0):>12,d} "
+              f"({want['counts'].get(kind, 0)})  port {got['bytes_by_kind'].get(kind, 0):>12,d} "
+              f"({got['counts'].get(kind, 0)})")
+
+
+@pytest.fixture(scope="module")
+def wave_ratios(jax_counts):
+    """Each smoke wave cell's port / JAX ratios: the total and all-reduce."""
+    import dataclasses
+
+    from repro_torch.configs import cells, qwen2_5_3b
+
+    out = {}
+    for b, mb in WAVES:
+        cfg = dataclasses.replace(qwen2_5_3b.smoke_config(), microbatches=mb)
+        got = dryrun.sharded_collectives(
+            lambda cfg=cfg, b=b: cells.lm_prefill_cell(cfg, MESH, b, WAVE_SEQ), MESH)
+        assert got.pop("replicated_for") == {}
+        want = jax_counts[f"waves/{b}/{mb}"]
+        _print_kinds(f"qwen2.5-3b smoke prefill, batch {b} in {mb} waves, seq {WAVE_SEQ}, "
+                     "(4, 2), a device", got, want)
+        out[b, mb] = {k: got["bytes_by_kind"].get(k, 0) / want["bytes_by_kind"][k]
+                      for k in ("all-reduce",)}
+        out[b, mb]["total"] = got["total_bytes"] / want["total_bytes"]
+        print(f"  port / JAX: total {out[b, mb]['total']:.3f}, "
+              f"all-reduce {out[b, mb]['all-reduce']:.3f}")
+    return out
+
+
+@pytest.mark.parametrize("waves", WAVES, ids=[f"{b}/{mb}" for b, mb in WAVES])
+def test_prefill_waves_collectives(wave_ratios, waves):
+    """A wave of a data-split batch laid out as GSPMD lays it: each smoke
+    cell within 2x of JAX's bytes in total, and the waves of 2 rows over 4
+    ``data`` ranks (8/4; GSPMD splits their rows over 2 of the ranks and
+    their sequence over the other 2) no further from JAX's, in total and
+    in all-reduce bytes (the row-parallel reductions of each wave's
+    block), than the even waves of 16/4 (beyond a tenth)."""
+    got = wave_ratios[waves]
+    assert 0.5 <= got["total"] <= 2, got
+    if waves == (8, 4):
+        even = wave_ratios[16, 4]
+        assert got["total"] <= 1.1 * even["total"], (got, even)
+        assert got["all-reduce"] <= 1.1 * even["all-reduce"], (got, even)
+
+
+def _traced(fn):
+    """``fn(mesh)``'s record and result on rank 0 of a fake (4, 2) group."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.mesh import fake_process_mesh
+    from repro_torch.models import sharding
+
+    with fake_process_mesh(MESH) as pm, sharding.sharded_trace(pm):
+        with FakeTensorMode(), dryrun.Collectives() as counter:
+            out = fn(pm)
+    return counter.record(), out
+
+
+def _last_position(pm):
+    from repro_torch.models import sharding
+
+    h = sharding.distribute(torch.empty(4, 64, 16), P("data", "model", None), pm)
+    return h[:, -1:, :].to_local().shape
+
+
+def _first_position(pm):
+    from repro_torch.models import sharding
+
+    h = sharding.distribute(torch.empty(4, 64, 16), P("data", "model", None), pm)
+    return h[:, :1, :].to_local().shape
+
+
+def _padded_rows(pm):
+    from repro_torch.models import sharding
+
+    x = sharding.distribute(torch.empty(2, 64, 16), P(None, None, None), pm)
+    return sharding.constrain(x, P("data", "model", None)).to_local().shape
+
+
+def _scatter_shard(pm):
+    from repro_torch.models import sharding
+
+    x = torch.empty(3, 16, requires_grad=True)
+    y = sharding.all_gather(x, "data", mesh=pm)  # (12, 16)
+    (g,) = torch.autograd.grad(y.sum(), x)
+    return g.shape
+
+
+@pytest.mark.parametrize("case, want_record, want_shape", [
+    # the last position of a sequence split over model lives on model rank 1:
+    # rank 0 receives it (XLA's collective-permute), 1 row x 1 x 16 floats
+    (_last_position, {"collective-permute": (1, 64)}, (1, 1, 16)),
+    # the first position is rank 0's own: nothing moves
+    (_first_position, {}, (1, 1, 16)),
+    # 2 rows over 4 data ranks: padded, rank 0 holds one (a slice, free)
+    (_padded_rows, {}, (1, 32, 16)),
+    # a reduce-scatter (the gather's transpose) counts its result, the shard
+    (_scatter_shard, {"all-gather": (1, 768), "reduce-scatter": (1, 192)}, (3, 16)),
+], ids=["last-position", "first-position", "padded-rows", "reduce-scatter-shard"])
+def test_trace_moves_as_gspmd(case, want_record, want_shape):
+    """The trace's pieces of GSPMD's layouts, on rank 0 of a (4, 2) mesh:
+    one position of a split sequence moved to the axes' first rank by a
+    collective-permute, a constraint whose axes outnumber a dim's rows
+    padding it, and a reduce-scatter counted by its shard as JAX's
+    ``collective_bytes`` reads XLA's text."""
+    rec, shape = _traced(case)
+    assert {k: (rec["counts"][k], rec["bytes_by_kind"][k]) for k in rec["counts"]} == want_record
+    assert tuple(shape) == want_shape
 
 
 # --------------------------------------------- traces equal live runs (gloo)
