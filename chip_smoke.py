@@ -145,13 +145,15 @@ Phases, each of which makes the script exit non-zero when it fails:
      ``decode_32k`` traced, which does not fit one card; each cell's
      collectives a device (the sharded trace over a fake process group, JAX's
      byte rule) and their link term printed on the local and 16x16 meshes;
-     NequIP and Equiformer ``ogb_products`` at their full widths and edge
-     counts, one layer, traced on the 16x16 mesh (their per-edge ops on
-     each rank's edge block: the phase fails on an error or an empty
-     count); mixtral-8x7b ``train_4k``'s and ``prefill_32k``'s (batch
-     waves of 8 rows over 16 data ranks) collectives on 16x16 held within
-     0.67-1.5 of JAX's (``MIXTRAL_JAX_16X16``, bf16 at XLA:CPU's 4 bytes on
-     both sides); no K1-K4 launch;
+     NequIP, Equiformer and MeshGraphNet ``ogb_products`` at their full
+     widths and edge counts, one layer, traced on the 16x16 mesh (their
+     per-edge ops on each rank's edge block: the phase fails on an error
+     or an empty count); mixtral-8x7b ``train_4k``'s and ``prefill_32k``'s
+     (batch waves of 8 rows over 16 data ranks) collectives on 16x16 held
+     within 0.67-1.5 of JAX's (``MIXTRAL_JAX_16X16``, bf16 at XLA:CPU's 4
+     bytes on both sides), and gemma-2b ``prefill_32k``'s (8 heads and 1
+     kv head over 16 ``model`` ranks) within 0.9-1.1 (``GEMMA_JAX_16X16``);
+     the phase's time logged; no K1-K4 launch;
  21. collectives across ranks (``phase_collectives``): 4 spawned ranks of a
      (2, 2) ``ProcessMesh`` on the one card (``launch.mesh.run_ranks``; gloo
      on CUDA tensors, the ranks sharing the card; backend, world size and
@@ -402,7 +404,7 @@ def max_abs_err(pairs) -> int:
 
 DRYRUN_CELLS = ("wide-deep/train_batch", "gat-cora/full_graph_sm", "wide-deep/serve_p99")
 DRYRUN_PEAK_RTOL = 0.10  # the traced peak against the card's, of the card's
-EDGE_SPLIT_GNNS = ("nequip", "equiformer-v2")  # ogb_products, traced at one layer
+EDGE_SPLIT_GNNS = ("nequip", "equiformer-v2", "meshgraphnet")  # ogb_products, one layer
 # JAX's collective bytes a device for mixtral-8x7b train_4k and prefill_32k
 # (its batch of 32 in 4 waves of 8 rows, fewer than the 16 data ranks) on
 # the 16x16 mesh (scripts/collectives_vs_jax.py --mesh single, on the CPU,
@@ -410,6 +412,10 @@ EDGE_SPLIT_GNNS = ("nequip", "equiformer-v2")  # ogb_products, traced at one lay
 # the port's are held to
 MIXTRAL_JAX_16X16 = {"train_4k": 593_539_565_360, "prefill_32k": 881_680_312_320}
 VS_JAX = (0.67, 1.5)
+# gemma-2b prefill_32k's (8 heads, 1 kv head: the head views factor model
+# over the heads and the head dim, as GSPMD does), the same way, held closer
+GEMMA_JAX_16X16 = {"prefill_32k": 46_846_689_280}
+VS_JAX_HEADS = (0.9, 1.1)
 
 
 def phase_dryrun(kernel_mods):
@@ -428,6 +434,7 @@ def phase_dryrun(kernel_mods):
     from repro_torch.train.tree import leaves
 
     reset(kernel_mods)
+    start = time.perf_counter()
     mesh = make_local_mesh()
     hbm = torch.cuda.get_device_properties(0).total_memory
     for cell in DRYRUN_CELLS:
@@ -495,17 +502,22 @@ def phase_dryrun(kernel_mods):
         f"{res['memory']['peak_bytes'] / 1e9:.3f} GB (args "
         f"{res['memory']['argument_size_in_bytes'] / 1e9:.3f} GB) against "
         f"{hbm / 1e9:.3f} GB, flops {res['flops_global']:.4e}, trace {res['trace_s']:.3f} s")
+    t0 = time.perf_counter()
     phase_dryrun_faults(pod)
+    log(f"dry-run phase: the sharded traces against JAX {time.perf_counter() - t0:.1f} s, the "
+        f"phase {time.perf_counter() - start:.1f} s")
     launches = counts(kernel_mods)
     check(not any(launches.values()), f"the dry-run phase launched K1-K4: {launches}")
 
 
 def phase_dryrun_faults(pod) -> None:
     """Phase 20's sharded traces that once failed or strayed from JAX's on
-    this torch: NequIP and Equiformer ``ogb_products`` (one layer at full
-    width and edge count, the edges split over the data axes) counted on
-    16x16, and mixtral-8x7b ``train_4k``'s and ``prefill_32k``'s totals
-    there against JAX's."""
+    this torch: NequIP, Equiformer and MeshGraphNet ``ogb_products`` (one
+    layer at full width and edge count, the edges split over the data
+    axes) counted on 16x16, mixtral-8x7b ``train_4k``'s and
+    ``prefill_32k``'s totals there against JAX's, and gemma-2b
+    ``prefill_32k``'s (its heads fewer than the ``model`` ranks) against
+    JAX's within ``VS_JAX_HEADS``."""
     import dataclasses
 
     import torch
@@ -538,22 +550,25 @@ def phase_dryrun_faults(pod) -> None:
         return sum(t.numel() * (4 if t.dtype == torch.bfloat16 else t.element_size())
                    for t in tree_leaves(x) if isinstance(t, torch.Tensor))
 
-    for shape_name, want in MIXTRAL_JAX_16X16.items():
+    held_to = [("mixtral-8x7b", shape_name, want, VS_JAX)
+               for shape_name, want in MIXTRAL_JAX_16X16.items()]
+    held_to += [("gemma-2b", shape_name, want, VS_JAX_HEADS)
+                for shape_name, want in GEMMA_JAX_16X16.items()]
+    for arch, shape_name, want, band in held_to:
         held, dryrun._tensor_bytes = dryrun._tensor_bytes, xla_cpu_bytes
         t0 = time.perf_counter()
         try:
-            res = dryrun.cell_collectives("mixtral-8x7b", shape_name, pod)
+            res = dryrun.cell_collectives(arch, shape_name, pod)
         finally:
             dryrun._tensor_bytes = held
         got = res["collectives"]["total_bytes"]
         ratio = got / want
-        log(f"dry-run mixtral-8x7b/{shape_name}@single_pod_16x16 (bf16 at XLA:CPU's 4 bytes): "
+        log(f"dry-run {arch}/{shape_name}@single_pod_16x16 (bf16 at XLA:CPU's 4 bytes): "
             f"port {got:,} B a device against JAX's {want:,} B, port / JAX {ratio:.3f} (" +
             ", ".join(f"{k} {v:,}" for k, v in sorted(res["collectives"]["bytes_by_kind"].items()))
             + f"), sharded traces {time.perf_counter() - t0:.1f} s")
-        check(VS_JAX[0] <= ratio <= VS_JAX[1],
-              f"mixtral-8x7b/{shape_name}@single_pod_16x16: port / JAX {ratio:.3f} outside "
-              f"{VS_JAX}")
+        check(band[0] <= ratio <= band[1],
+              f"{arch}/{shape_name}@single_pod_16x16: port / JAX {ratio:.3f} outside {band}")
 
 
 def log_collectives(cell: str, mesh_name: str, res: dict) -> None:

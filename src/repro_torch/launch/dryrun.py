@@ -167,6 +167,13 @@ def _group_size(args) -> int | None:
     return None
 
 
+def _world() -> int:
+    """The ranks of the default process group (1 where none is up)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 class Collectives(TorchDispatchMode):
     """Counts the collectives a program issues, per device, by JAX's rule
     (``collective_bytes``): each one filed under XLA's kind, its bytes its
@@ -177,12 +184,19 @@ class Collectives(TorchDispatchMode):
     results into its first argument; a functional one returns them.  An
     op on DTensors passes to DTensor first, so the collectives it lowers
     to are the ones seen.  A collective over one rank moves nothing and is
-    not counted (XLA drops it); one of no known kind raises."""
+    not counted (GSPMD makes none), unless an arm's own named-axis
+    collective issues it on a mesh of several (``sharding.explicit``: XLA
+    keeps a shard_map's collective over a one-rank group of a wider mesh
+    in its text); one that repeats a ``lax.scan`` step's
+    (``sharding.repeating``) is not counted again, as JAX reads a while
+    loop's body once; one of no known kind raises."""
 
     def __init__(self):
         super().__init__()
         self.bytes_by_kind: dict[str, int] = {}
         self.counts: dict[str, int] = {}
+        self.pending: list = []  # (kind, bytes, forward call) until the trace's dead code is known
+        self.live = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -196,19 +210,32 @@ class Collectives(TorchDispatchMode):
             return out
         if name not in _KINDS:
             raise ValueError(f"collective {name} has no XLA kind to count it under")
-        if _group_size(args) == 1:
+        if (_group_size(args) == 1 and not (sharding.explicit() and _world() > 1)
+                or sharding.repeating()):
             return out
         result = args[0] if name.startswith("c10d::") else out
         kind = _KINDS[name]
         nbytes = _tensor_bytes(result)
+        live, at = sharding.issuing()
+        if at is not None:
+            self.live = live
+            self.pending.append((kind, nbytes, at))
+            return out
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + nbytes
         self.counts[kind] = self.counts.get(kind, 0) + 1
         return out
 
     def record(self) -> dict:
-        """JAX's record: ``bytes_by_kind``, ``counts``, ``total_bytes``."""
-        return {"bytes_by_kind": dict(self.bytes_by_kind), "counts": dict(self.counts),
-                "total_bytes": sum(self.bytes_by_kind.values())}
+        """JAX's record: ``bytes_by_kind``, ``counts``, ``total_bytes``;
+        a sharded trace's collectives of dead code (``sharding.issuing``)
+        left out, as XLA removes them."""
+        by, counts = dict(self.bytes_by_kind), dict(self.counts)
+        dead = self.live.dead() if self.live is not None else set()
+        for kind, nbytes, at in self.pending:
+            if at not in dead:
+                by[kind] = by.get(kind, 0) + nbytes
+                counts[kind] = counts.get(kind, 0) + 1
+        return {"bytes_by_kind": by, "counts": counts, "total_bytes": sum(by.values())}
 
 
 _RULE_MISSING = re.compile(r"Operator (\S+) does not have a sharding strategy registered")

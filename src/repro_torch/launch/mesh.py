@@ -78,6 +78,17 @@ def make_local_mesh(n_devices: int | None = None, model: int = 1) -> Mesh:
 AXES = ("data", "model")
 
 
+def _primes(n: int) -> list:
+    """``n``'s prime factors, ascending."""
+    out, f = [], 2
+    while n > 1:
+        while n % f == 0:
+            out.append(f)
+            n //= f
+        f += 1
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh(Mesh):
     """This rank's view of a mesh of ranks (one process each) over the
@@ -86,25 +97,57 @@ class ProcessMesh(Mesh):
     of JAX's layouts: ``("data", "model")`` or ``("pod", "data",
     "model")``.  Ranks are numbered row-major over the axes, as JAX
     linearizes a device's mesh position: the rank at ``(d, m)`` of a
-    ``(data, model)`` mesh is ``d * sizes[1] + m``."""
+    ``(data, model)`` mesh is ``d * sizes[1] + m``.
+
+    An axis may be factored: its ``DeviceMesh`` dims are then its prime
+    factors, outermost first (``model`` of 8 is the dims ``model.0``,
+    ``model.1``, ``model.2`` of 2 each), so a tensor can be split over
+    part of the axis, or over two of its dims at once, as GSPMD tiles one
+    mesh axis over several dims (a ``P("model")`` split is ``Shard`` on
+    each factor, the same blocks in the same order).  ``dim_axes`` names
+    each ``DeviceMesh`` dim's axis; ``logical`` is the unfactored
+    ``DeviceMesh`` over the same ranks (None where nothing is factored)."""
 
     device_mesh: object = dataclasses.field(default=None, compare=False, repr=False)
     subs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+    logical: object = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
-    def init(cls, sizes, device: str = "cuda", axes=AXES) -> ProcessMesh:
+    def init(cls, sizes, device: str = "cuda", axes=AXES, factor=()) -> ProcessMesh:
         """This rank's mesh of ``sizes`` ranks, one size an axis of ``axes``,
-        on ``device``."""
+        on ``device``; each axis of ``factor`` whose size is not prime
+        factored into its primes."""
         from torch.distributed.device_mesh import init_device_mesh
 
         sizes, axes = tuple(sizes), tuple(axes)
         if len(sizes) != len(axes):
             raise ValueError(f"{len(sizes)} sizes for the {len(axes)} axes {axes}")
-        return cls(axes, sizes, init_device_mesh(device, sizes, mesh_dim_names=axes))
+        dims, names = [], []
+        for a, n in zip(axes, sizes):
+            ps = (_primes(n) if a in factor else []) or [n]
+            dims.extend(ps)
+            names.extend([a] if len(ps) < 2 else [f"{a}.{i}" for i in range(len(ps))])
+        if len(dims) == len(sizes):
+            return cls(axes, sizes, init_device_mesh(device, sizes, mesh_dim_names=axes))
+        return cls(axes, sizes, init_device_mesh(device, tuple(dims), mesh_dim_names=tuple(names)),
+                   logical=init_device_mesh(device, sizes, mesh_dim_names=axes))
+
+    @property
+    def dim_axes(self) -> tuple:
+        """The axis of each ``DeviceMesh`` dim (an axis once a factor)."""
+        return tuple(n.split(".")[0] for n in self.device_mesh.mesh_dim_names)
+
+    def dims(self, axes) -> tuple:
+        """The ``DeviceMesh`` dims of ``axes`` (a name or a tuple), in mesh order."""
+        names = set(self._names(axes))
+        return tuple(i for i, a in enumerate(self.dim_axes) if a in names)
 
     def axis_index(self, name: str) -> int:
         """This rank's index along axis ``name``."""
-        return self.device_mesh.get_local_rank(name)
+        idx = 0
+        for i in self.dims(name):
+            idx = idx * self.device_mesh.size(i) + self.device_mesh.get_local_rank(i)
+        return idx
 
     def _names(self, axes) -> tuple:
         """``axes`` (a name, or a tuple of names in mesh order) as a tuple."""
@@ -118,28 +161,49 @@ class ProcessMesh(Mesh):
         """The ranks along ``axes`` (a name, or a tuple of names)."""
         return math.prod(self.shape[a] for a in self._names(axes))
 
-    def sub_mesh(self, axes):
-        """The ``DeviceMesh`` of ``axes``: one axis's, or their product
-        flattened into one dim (group ranks in axis order either way)."""
+    def runs_mesh(self, runs):
+        """The ``DeviceMesh`` over the same ranks with each run of ``runs``
+        (consecutive dims, together every dim in order) one dim: the
+        unfactored mesh where the runs are the axes."""
+        import torch
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.distributed.device_mesh import DeviceMesh
+
+        runs = tuple(map(tuple, runs))
+        if tuple(self.dims(a) for a in self.axis_names) == runs:
+            return self.logical
+        if runs not in self.subs:
+            names = self.device_mesh.mesh_dim_names
+            with unset_fake_temporarily():
+                self.subs[runs] = DeviceMesh(
+                    self.device_mesh.device_type,
+                    torch.arange(self.size).reshape(
+                        [math.prod(self.device_mesh.size(i) for i in run) for run in runs]),
+                    mesh_dim_names=tuple("+".join(names[i] for i in run) for run in runs))
+        return self.subs[runs]
+
+    def dims_group(self, dims):
+        """The process group of the ``DeviceMesh`` dims ``dims`` (indices, in
+        mesh order): the world for all of them, one dim's group, or the
+        flattened group of several (group ranks in mesh order)."""
+        import torch.distributed as dist
         from torch._subclasses.fake_tensor import unset_fake_temporarily
 
-        names = self._names(axes)
-        if names not in self.subs:
+        dims = tuple(dims)
+        if len(dims) == self.device_mesh.ndim:
+            return dist.group.WORLD
+        if dims not in self.subs:
+            names = tuple(self.device_mesh.mesh_dim_names[i] for i in dims)
             # the mesh's rank tables are real tensors, also inside a fake trace
             with unset_fake_temporarily():
                 sub = self.device_mesh[names[0] if len(names) == 1 else names]
-                self.subs[names] = sub if len(names) == 1 else sub._flatten("_".join(names))
-        return self.subs[names]
+                self.subs[dims] = sub if len(names) == 1 else sub._flatten("_".join(names))
+        return self.subs[dims].get_group()
 
     def group(self, axes):
         """The process group of ``axes``: the world for the whole mesh, one
         axis's group, or the flattened group of several."""
-        import torch.distributed as dist
-
-        names = self._names(axes)
-        if names == self.axis_names:
-            return dist.group.WORLD
-        return self.sub_mesh(names).get_group()
+        return self.dims_group(self.dims(axes))
 
 
 def _fake_backend():
@@ -155,9 +219,11 @@ def _fake_backend():
 def fake_process_mesh(mesh: Mesh):
     """Rank 0's ``ProcessMesh`` of ``mesh``'s layout over a fake process
     group of ``mesh.size`` ranks in this process, for the ``with`` block:
-    the counterpart of JAX's forced host devices.  Collectives on it move
-    nothing; under ``FakeTensorMode`` they allocate nothing.  A process
-    holds one default group, so this raises when one is already up."""
+    the counterpart of JAX's forced host devices, its ``model`` axis
+    factored (a trace splits part of it as GSPMD does).  Collectives on it
+    move nothing; under ``FakeTensorMode`` they allocate nothing.  A
+    process holds one default group, so this raises when one is already
+    up."""
     import torch.distributed as dist
 
     store = _fake_backend()
@@ -166,7 +232,7 @@ def fake_process_mesh(mesh: Mesh):
                            "accounting group needs a process of its own")
     dist.init_process_group("fake", store=store(), rank=0, world_size=mesh.size)
     try:
-        yield ProcessMesh.init(mesh.sizes, "cpu", axes=mesh.axis_names)
+        yield ProcessMesh.init(mesh.sizes, "cpu", axes=mesh.axis_names, factor=("model",))
     finally:
         dist.destroy_process_group()
 

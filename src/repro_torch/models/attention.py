@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
-from repro_torch.models.sharding import carry
+from repro_torch.models.sharding import carry, scan
 
 NEG = -1e30  # the masked score
 
@@ -115,7 +115,7 @@ def _chunked_sdpa(q, k, v, pos_q, pos_k, window, scale, chunk):
     m = torch.full((b, hkv, g, s), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hkv, g, s, d), dtype=torch.float32, device=q.device)
-    for c0 in range(0, k.shape[1], chunk):
+    for c0 in scan(range(0, k.shape[1], chunk)):  # JAX's lax.scan over the chunks
         kc, vc, pc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk], pos_k[:, c0:c0 + chunk]
         logits = torch.einsum("bshgd,bchd->bhgsc", q5, kc).to(torch.float32) * scale
         valid = (pc[:, None, :] >= 0) & (pc[:, None, :] <= pos_q[:, :, None])

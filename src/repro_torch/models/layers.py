@@ -21,6 +21,8 @@ import torch.utils.checkpoint
 from torch import nn
 from torch.utils._python_dispatch import _disable_current_modes
 
+from repro_torch.models import sharding
+
 
 def constant_cache(fn):
     """``functools.lru_cache`` for a function that builds constant tensors
@@ -160,17 +162,20 @@ def remat(fn, enabled: bool = True):
 
 def _forward_modes():
     """``checkpoint``'s contexts: none for the forward, and the forward's
-    torch-function modes for the recomputation."""
+    torch-function modes for the recomputation (in a sharded trace, which
+    matches its calls to the forward's: ``sharding.recomputation``)."""
     modes = torch.overrides._get_current_function_mode_stack()
     if not modes:
         return contextlib.nullcontext(), contextlib.nullcontext()
     stack = contextlib.ExitStack()
+    again = sharding.recomputation()
 
     @contextlib.contextmanager
     def replay():
         with stack:
             for mode in modes:
                 stack.enter_context(mode)
+            stack.enter_context(again)
             yield
 
     return contextlib.nullcontext(), replay()

@@ -58,6 +58,23 @@ version, whose own rules for these ops differ.  An op DTensor has no rule
 for runs on its inputs replicated (``Replicated``), and the trace names
 it.
 
+GSPMD may split one mesh axis over two dims of a tensor (a dim of ``H *
+D`` split ``k`` ways, viewed as ``(H, D)``: ``gcd(H, k)`` ways on ``H``,
+the rest on ``D``), which DTensor cannot place on one mesh dim.  The
+trace's mesh factors ``model`` into its primes (``launch.mesh``), so a
+split over part of the axis is a placement on some of its factors: a view
+keeps such a tiling (``_tiled_view``), DTensor's moves and sharding
+propagation run as on the unfactored mesh where each axis's factors agree
+(the same collectives as there) and otherwise move a tiling by the one
+collective XLA issues for it (``_tiled_move``); a slice of a split dim and
+its transpose move blocks by collective-permutes, a concatenate by
+all-to-alls.  A ``lax.scan`` loop's later steps (``scan``) repeat its
+first step's collectives, which JAX counts once.  XLA removes the code no
+output reads, and the trace leaves its collectives uncounted: a forward
+op none of whose results the backward pass or a result outside the graph
+reads, and that op again in a rematerialized region's recomputation
+(``_Liveness``).
+
 JAX's version shims (``repro.compat``: ``shard_map``, ``pallas_native``,
 ``compat_make_mesh``) have no counterpart: they wrap jax APIs that differ
 across jax versions.
@@ -183,26 +200,61 @@ class _Constrain(torch.autograd.Function):
         return _redistribute(g, ctx.target), None
 
 
+# a sharded trace's step of a loop JAX writes as lax.scan: whether its
+# collectives repeat the first step's
+_REPEAT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_repeat", default=False)
+
+
+def scan(steps):
+    """The steps of a loop JAX writes as ``lax.scan`` (``for i in
+    scan(range(n))``): in a sharded trace each step after the first
+    repeats the first one's collectives (``repeating``), as XLA's while
+    loop holds its body once and JAX's ``collective_bytes`` reads it once;
+    the backward pass's steps likewise, from the last step's ``carry`` to
+    the first's.  Otherwise the steps as they are."""
+    if _SHARDED.get() is None:
+        yield from steps
+        return
+    before = _REPEAT.get()
+    try:
+        for i, step in enumerate(steps):
+            _REPEAT.set(before or i > 0)
+            yield step
+    finally:
+        _REPEAT.set(before)
+
+
+def repeating() -> bool:
+    """Whether the collectives being issued repeat a loop's first step
+    (``scan``): the dry-run does not count them again."""
+    return _REPEAT.get()
+
+
 def carry(*xs):
-    """A loop's carry, as JAX's ``lax.scan`` carries it: in a sharded trace
-    each DTensor's cotangent is split as the tensor is (XLA's while loop
-    holds one layout for its carry, and its transposed loop's carry takes
-    that split, resharding a cotangent once where the loop starts; on an
-    axis the tensor is whole over, the cotangent stays as it lies);
-    otherwise the tensors as they are."""
+    """A loop's carry at the end of a step, as JAX's ``lax.scan`` carries
+    it: in a sharded trace each DTensor's cotangent is split as the tensor
+    is (XLA's while loop holds one layout for its carry, and its
+    transposed loop's carry takes that split, resharding a cotangent once
+    where the loop starts; on an axis the tensor is whole over, the
+    cotangent stays as it lies); otherwise the tensors as they are."""
     return tuple(_Carry.apply(x) if is_distributed(x) else x for x in xs)
 
 
 class _Carry(torch.autograd.Function):
+    """The carry's identity; its backward starts the transposed loop's step
+    (``scan``: a later step's repeats the first's collectives)."""
+
     @staticmethod
     def forward(ctx, x):
-        ctx.placements = x.placements
+        ctx.placements, ctx.repeat = x.placements, _REPEAT.get()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _redistribute(g, [p if p.is_shard() else q
-                                 for p, q in zip(ctx.placements, g.placements)])
+        g = _redistribute(g, [p if p.is_shard() else q
+                              for p, q in zip(ctx.placements, g.placements)])
+        _REPEAT.set(ctx.repeat)
+        return g
 
 
 def _axes(part) -> tuple:
@@ -342,8 +394,11 @@ def _once(tag: tuple, x: torch.Tensor, issue, fresh: bool = True):
         return issue()
     key = (tag, x.untyped_storage()._cdata, x.storage_offset(), tuple(x.shape), x.stride(),
            x.dtype, x._version)
+    live, at = issuing()
     if key not in memo:
-        memo[key] = (x, issue())  # x held: its storage is not freed and reused
+        memo[key] = (x, issue(), at)  # x held: its storage is not freed and reused
+    elif live is not None:  # a later call reads the first one's collectives
+        live.reused.append((memo[key][2], at))
     return memo[key][1].clone() if fresh else memo[key][1]
 
 
@@ -363,15 +418,38 @@ def once(fn, x: torch.Tensor, *args):
                  fresh=False)
 
 
+# a shard_map body's own collective (jax.lax's): XLA keeps it over a group
+# of one rank, where GSPMD makes none
+_EXPLICIT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_explicit", default=False)
+
+
+def explicit() -> bool:
+    """Whether the collective being issued is a named-axis one of an arm
+    (``psum``, ``all_gather``, ... and their transposes): the dry-run
+    counts it over a one-rank group too, as XLA keeps a shard_map's
+    collective there (GSPMD issues none over one rank)."""
+    return _EXPLICIT.get()
+
+
+@contextlib.contextmanager
+def _named():
+    token = _EXPLICIT.set(True)
+    try:
+        yield
+    finally:
+        _EXPLICIT.reset(token)
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group, ctx.named = group, explicit()
         return _reduce(x, dist.ReduceOp.SUM, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce(g, dist.ReduceOp.SUM, ctx.group), None
+        with _named() if ctx.named else contextlib.nullcontext():
+            return _reduce(g, dist.ReduceOp.SUM, ctx.group), None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -382,7 +460,8 @@ class _AllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _a2a(g, ctx.group), None
+        with _named():
+            return _a2a(g, ctx.group), None
 
 
 class _AllGather(torch.autograd.Function):
@@ -397,24 +476,28 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter0(g, ctx.ways, ctx.group), None, None
+        with _named():
+            return _scatter0(g, ctx.ways, ctx.group), None, None
 
 
 def all_to_all(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     """``jax.lax.all_to_all(x, axes, 0, 0)``: axis 0 of ``x`` in as many
     equal chunks as ``axes`` has ranks, chunk ``k`` to rank ``k``; the
     chunks received, in source order."""
-    return _AllToAll.apply(x, _mesh(mesh).group(axes))
+    with _named():
+        return _AllToAll.apply(x, _mesh(mesh).group(axes))
 
 
 def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     """``jax.lax.psum``: the sum over the ranks of ``axes``, on each."""
-    return _Psum.apply(x, _mesh(mesh).group(axes))
+    with _named():
+        return _Psum.apply(x, _mesh(mesh).group(axes))
 
 
 def pmax(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     """``jax.lax.pmax``: the largest over the ranks of ``axes``, on each."""
-    return _reduce(x, dist.ReduceOp.MAX, _mesh(mesh).group(axes))
+    with _named():
+        return _reduce(x, dist.ReduceOp.MAX, _mesh(mesh).group(axes))
 
 
 def pmean(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
@@ -427,7 +510,8 @@ def all_gather(x: torch.Tensor, axes, axis: int = 0, mesh=None) -> torch.Tensor:
     """``jax.lax.all_gather(x, axes, axis=axis, tiled=True)``: the ranks'
     ``x`` concatenated along ``axis`` in their order along ``axes``."""
     mesh = _mesh(mesh)
-    out = _AllGather.apply(x.movedim(axis, 0), mesh.axis_size(axes), mesh.group(axes))
+    with _named():
+        out = _AllGather.apply(x.movedim(axis, 0), mesh.axis_size(axes), mesh.group(axes))
     return out.movedim(0, axis).contiguous()
 
 
@@ -454,20 +538,37 @@ def _present(spec: P, mesh) -> P:
 
 def placements(spec: P, mesh) -> list:
     """DTensor's placements of ``spec`` on ``mesh`` (a ``ProcessMesh``): one a
-    mesh axis, ``Shard(dim)`` where ``spec`` splits dim over it, else
+    ``DeviceMesh`` dim (an axis, or each factor of a factored one),
+    ``Shard(dim)`` where ``spec`` splits dim over its axis, else
     ``Replicate()``.  A tuple of axes on one dim must be in mesh order, the
     order DTensor nests its shards in (row-major, as JAX splits)."""
     from torch.distributed.tensor import Replicate, Shard
 
-    out = [Replicate()] * len(mesh.axis_names)
+    out = [Replicate()] * len(mesh.dim_axes)
     for dim, part in enumerate(spec):
         order = [mesh.axis_names.index(a) for a in _axes(part)]
         if order != sorted(order):
             raise ValueError(f"{spec}: the axes of dim {dim} are not in mesh order "
                              f"{mesh.axis_names}")
-        for i in order:
+        for i in mesh.dims(_axes(part)) if order else ():
             out[i] = Shard(dim)
     return out
+
+
+def _dim_axes(device_mesh) -> tuple:
+    """The axis of each dim of a trace's ``DeviceMesh`` (``launch.mesh``
+    names an axis's factors ``axis.k``)."""
+    return tuple(n.split(".")[0] for n in device_mesh.mesh_dim_names)
+
+
+def _group(dims):
+    """The process group of the trace mesh's ``DeviceMesh`` dims ``dims``."""
+    return _SHARDED.get().dims_group(tuple(dims))
+
+
+def _split_over(x, dim: int) -> tuple:
+    """The ``DeviceMesh`` dims that split dim ``dim`` of the DTensor ``x``."""
+    return tuple(i for i, p in enumerate(x.placements) if p.is_shard(dim))
 
 
 def _grad_placements(spec: P, mesh) -> list:
@@ -544,19 +645,22 @@ def _redistribute(x, target: list):
     x = _unpadded(x, target)
     done = [p.is_partial() and not t.is_partial() for p, t in zip(x.placements, target)]
     if sum(done) > 1:
-        names = tuple(a for a, d in zip(mesh.axis_names, done) if d)
+        dims = tuple(i for i, d in enumerate(done) if d)
         op = x.placements[done.index(True)].reduce_op
-        y = _reduce(x.to_local(), _REDUCE_OPS[op], mesh.group(names))
+        y = _reduce(x.to_local(), _REDUCE_OPS[op], mesh.dims_group(dims))
         if op == "avg":
-            y = y / mesh.axis_size(names)
+            y = y / math.prod(x.device_mesh.size(i) for i in dims)
         x = DTensor.from_local(y, x.device_mesh,
                                [Replicate() if d else p for p, d in zip(x.placements, done)],
                                run_check=False, shape=x.shape, stride=x.stride())
+    scatter = {}
     for i, (p, t) in enumerate(zip(x.placements, target)):
-        if (p.is_partial() and p.reduce_op == "sum" and t.is_shard()
-                and not any(q.is_shard(t.dim) for q in x.placements)
-                and x.to_local().shape[t.dim] % x.device_mesh.size(i) == 0):
-            x = _Scattered.apply(x, i, t.dim)
+        if p.is_partial() and p.reduce_op == "sum" and t.is_shard():
+            scatter.setdefault(t.dim, []).append(i)
+    for dim, dims in scatter.items():
+        if (not any(q.is_shard(dim) for q in x.placements)
+                and x.to_local().shape[dim] % math.prod(x.device_mesh.size(i) for i in dims) == 0):
+            x = _Scattered.apply(x, tuple(dims), dim)
     return _moved_together(x, target).redistribute(x.device_mesh, target)
 
 
@@ -573,7 +677,7 @@ def _moved_together(x, target: list):
              if p.is_shard() and t.is_shard() and p.dim != t.dim}
     dims = [i for i, (p, t) in enumerate(zip(x.placements, target))
             if p.is_shard() and t.is_shard() and p.dim != t.dim]
-    if len(moves) != 1 or len(dims) < 2:
+    if len(moves) != 1 or len({_dim_axes(x.device_mesh)[i] for i in dims}) < 2:
         return x
     (a, b), = moves
     if any(p.is_shard(b) or (p.is_shard(a) and i not in dims) for i, p in enumerate(x.placements)):
@@ -581,8 +685,7 @@ def _moved_together(x, target: list):
     mesh = _SHARDED.get()
     block = x.to_local()
     ways = math.prod(x.device_mesh.size(i) for i in dims)
-    _a2a(block.new_empty(ways * math.ceil(block.numel() / ways)),
-         mesh.group(tuple(mesh.axis_names[i] for i in dims)))
+    _a2a(block.new_empty(ways * math.ceil(block.numel() / ways)), mesh.dims_group(tuple(dims)))
     shape = list(block.shape)
     shape[a] = x.shape[a]
     shape[b] = x.shape[b]
@@ -594,22 +697,22 @@ def _moved_together(x, target: list):
 
 
 class _Scattered(torch.autograd.Function):
-    """A partial sum over mesh dim ``i`` reduce-scattered along ``dim``: one
-    reduce-scatter in every torch version (some reduce the whole and slice
-    it).  Its transpose gathers the cotangent over the dim (each rank's
-    partial takes the whole)."""
+    """A partial sum over the mesh dims ``dims`` reduce-scattered along
+    ``dim``: one reduce-scatter over their group in every torch version
+    (some reduce the whole and slice it, or go a dim at a time).  Its
+    transpose gathers the cotangent over the dims (each rank's partial
+    takes the whole)."""
 
     @staticmethod
-    def forward(ctx, x, i, dim):
+    def forward(ctx, x, dims, dim):
         from torch.distributed.tensor import DTensor, Shard
 
         ctx.placements = x.placements
-        mesh = _SHARDED.get()
-        block = _scatter0(x.to_local().movedim(dim, 0), x.device_mesh.size(i),
-                          mesh.group(mesh.axis_names[i])).movedim(0, dim)
-        return DTensor.from_local(block, x.device_mesh,
-                                  [Shard(dim) if k == i else q for k, q in enumerate(x.placements)],
-                                  run_check=False, shape=x.shape, stride=x.stride())
+        ways = math.prod(x.device_mesh.size(i) for i in dims)
+        block = _scatter0(x.to_local().movedim(dim, 0), ways, _group(dims)).movedim(0, dim)
+        out = [Shard(dim) if k in dims else q for k, q in enumerate(x.placements)]
+        return DTensor.from_local(block, x.device_mesh, out, run_check=False, shape=x.shape,
+                                  stride=x.stride())
 
     @staticmethod
     def backward(ctx, g):
@@ -662,11 +765,10 @@ def _fsdp_use(w):
     resident weights)."""
     from torch.distributed.tensor import Replicate
 
-    mesh = _SHARDED.get()
-    tp_dims = {p.dim for a, p in zip(mesh.axis_names, w.placements)
-               if a == "model" and p.is_shard()}
+    axes = _dim_axes(w.device_mesh)
+    tp_dims = {p.dim for a, p in zip(axes, w.placements) if a == "model" and p.is_shard()}
     target = [Replicate() if a in ("pod", "data") and p.is_shard() and p.dim not in tp_dims
-              else p for a, p in zip(mesh.axis_names, w.placements)]
+              else p for a, p in zip(axes, w.placements)]
     return _laid(w, target)
 
 
@@ -700,38 +802,53 @@ def _matmul(a, b):
 
 class _Dot(torch.autograd.Function):
     """``x @ w`` (``x`` of 2 or 3 dims, ``w`` a 2-D weight) as GSPMD partitions it.
-    Forward: the weight gathered at its use (``_fsdp_use``; with ``once``,
-    a program without gradients, once a trace a weight, as XLA's CSE keeps
-    one gather a weight for a prefill's unrolled waves), the activation
+    Forward: the weight gathered at its use (``_weight``), the activation
     gathered where an axis serves the weight (``_for_product``), each
     rank's product of its blocks, and its partial sum reduced where it is
     made.  Backward, as GSPMD partitions the transposed dots by their
     operands' layouts (``_blocks_dot``, the smaller operand gathered where
     an axis splits the two along different labels): the input's cotangent
     keeps the rows' split of the output's (the weight gathered again, as
-    JAX's backward gathers it), reduced where partial; the weight's
-    cotangent sums over the rows and is reduced to the weight's layout."""
+    JAX's backward gathers it, once with its rematerialized forward's),
+    reduced where partial; the weight's cotangent sums over the rows and
+    is reduced to the weight's layout."""
 
     @staticmethod
     def forward(ctx, x, w, once):
         ctx.save_for_backward(x, w)
         rows = "bs"[:x.dim() - 1]
-        wu = (_once(("use", tuple(w.placements)), w.to_local(), lambda: _fsdp_use(w),
-                    fresh=False) if once else _fsdp_use(w))
-        return reduced(_blocks_dot(f"{rows}k,kn->{rows}n", _for_product(x, wu), wu))
+        wu = _weight(w, once)
+        return reduced(_blocks_dot(f"{rows}k,kn->{rows}n", _for_product(x, wu), wu,
+                                   forward=True, weight=True))
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         rows = "bs"[:x.dim() - 1]
         g = reduced(g)
-        gx = reduced(_blocks_dot(f"{rows}n,kn->{rows}k", g, w))
+        small = w.numel() <= g.numel()  # the operand _blocks_dot gathers
+        gx = reduced(_blocks_dot(f"{rows}n,kn->{rows}k", g, _weight(w) if small else w))
         gw = _redistribute(_blocks_dot(f"{rows}k,{rows}n->kn", x, g, list(w.placements)),
                            list(w.placements))
         return gx, gw, None
 
 
-def _blocks_dot(equation: str, a, b, keep=None):
+def _weight(w, once: bool = False):
+    """The weight ``w`` at its use (``_fsdp_use``), gathered once where XLA's
+    CSE leaves one gather: in a program without gradients (``once``) one a
+    weight a trace (a prefill's unrolled waves), and in a backward pass one
+    a weight for its rematerialized forward and its transposed dots
+    together (the forward's own gather stays apart, as a checkpoint keeps
+    it)."""
+    task = torch._C._current_graph_task_id()
+    if not once and task == -1:
+        return _fsdp_use(w)
+    return _once(("use", None if once else task, tuple(w.placements)), w.to_local(),
+                 lambda: _fsdp_use(w), fresh=False)
+
+
+def _blocks_dot(equation: str, a, b, keep=None, forward: bool = False,
+                weight: bool = False):
     """``torch.einsum(equation, a, b)`` on DTensors (no repeated label, no
     ellipsis), as GSPMD partitions a dot: on each axis, where the operands
     are split along different labels, the smaller one gathered; the label
@@ -739,57 +856,86 @@ def _blocks_dot(equation: str, a, b, keep=None):
     free); then each rank's einsum of its blocks, the output split along
     the label where it keeps it, a partial sum where the label is summed.
     A label its axis does not divide is gathered, unless an operand holds
-    it split so already (padded, as ``constrain`` pads it): it stays.
+    it split so already (padded, as ``constrain`` pads it): it stays.  A
+    summed label that one operand would meet only by a split on a mesh dim
+    outer to one it holds already (``_reordered``: the blocks lie on other
+    ranks, a reshard, not a slice) is gathered in both operands instead.
+
+    In a ``forward`` product, on a mesh dim where one operand splits a
+    summed label and the weight (``b`` with ``weight``, else the smaller
+    operand) is whole, GSPMD gathers the other and splits the output along
+    the weight's own label instead (a slice of it): a channel split carried
+    through a dense or a per-channel linear map, with no partial sum to
+    reduce.  Its transpose keeps the partial sum.
 
     ``keep`` (a transposed dot's: the placements of the forward operand
     whose cotangent it makes) is the output's layout where sharding
     propagation gives GSPMD one: on an axis where ``keep`` splits an output
     label, that label is split, in each operand that holds it, and an
-    operand without it is gathered over the axis; where the operands share
-    a split of a summed label there, the partial sum stays if its reduction
-    moves no more than gathering the operands would, and they are gathered
-    otherwise."""
+    operand without it is gathered over the axis."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     (la, lb), lo = equation.split("->")[0].split(","), equation.split("->")[1]
     a_small = a.numel() * a.element_size() <= b.numel() * b.element_size()
+    # the weight's own output labels (``b``'s, or the smaller operand's)
+    b_weight = weight or not a_small
+    free = ([c for c in lb if c in lo and c not in la] if b_weight
+            else [c for c in la if c in lo and c not in lb])
     mesh, sizes = a.device_mesh, dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
-    out_bytes = math.prod(sizes[c] for c in lo) * a.element_size()
-    gather_cheaper = keep is not None and out_bytes > (a.numel() * a.element_size()
-                                                       + b.numel() * b.element_size())
     keep = keep if keep is not None else [Replicate()] * mesh.ndim
-    pa, pb, po = [], [], []
-    for qa, qb, n, want in zip(a.placements, b.placements, mesh.shape, keep):
-        ca = la[qa.dim] if qa.is_shard() else None
-        cb = lb[qb.dim] if qb.is_shard() else None
-        held = (ca, cb)
-        summed = ca if ca and ca == cb and ca not in lo else None
-        if ca and cb and ca != cb:
-            ca, cb = (None, cb) if a_small else (ca, None)
-        label = None if summed and gather_cheaper else ca or cb
-        kept = lo[want.dim] if want.is_shard() and not summed else None
-        if kept and sizes[kept] % n == 0:
-            label = kept
-        if label and sizes[label] % n and label not in held:
-            label = None
-        pa.append(Shard(la.index(label)) if label and label in la else Replicate())
-        pb.append(Shard(lb.index(label)) if label and label in lb else Replicate())
-        po.append(Shard(lo.index(label)) if label and label in lo
-                  else Partial() if label else Replicate())
-    y = torch.einsum(equation, _laid(a, pa).to_local(), _laid(b, pb).to_local())
+
+    def plan(gather):
+        pa, pb, po, ways = [], [], [], {}
+        for qa, qb, n, want in zip(a.placements, b.placements, mesh.shape, keep):
+            ca = la[qa.dim] if qa.is_shard() else None
+            cb = lb[qb.dim] if qb.is_shard() else None
+            held = (ca, cb)
+            summed = ca if ca and ca == cb and ca not in lo else None
+            if ca and cb and ca != cb:
+                ca, cb = (None, cb) if a_small else (ca, None)
+            big = ca if b_weight else cb  # the other operand's split here
+            if forward and big and big not in lo and not (ca and cb) and free:
+                # the larger operand's summed label gathered, the output split
+                # by the smaller's own label: a slice of it, no partial sum
+                ca = cb = free[0]
+            label = None if (ca or cb) in gather else ca or cb
+            kept = lo[want.dim] if want.is_shard() and not summed else None
+            if kept and sizes[kept] % (ways.get(kept, 1) * n) == 0:
+                label = kept
+            if label and sizes[label] % (ways.get(label, 1) * n) and label not in held:
+                label = None
+            if label:  # a label split over several mesh dims (an axis's factors)
+                ways[label] = ways.get(label, 1) * n
+            pa.append(Shard(la.index(label)) if label and label in la else Replicate())
+            pb.append(Shard(lb.index(label)) if label and label in lb else Replicate())
+            po.append(Shard(lo.index(label)) if label and label in lo
+                      else Partial() if label else Replicate())
+        return pa, pb, po
+
+    pa, pb, po = plan(())
+    summed = (set(la) & set(lb)) - set(lo)
+    reordered = summed & {*_reordered(a, pa, la), *_reordered(b, pb, lb)}
+    if reordered:  # the summed labels would meet by a reshard, not a slice: gathered
+        pa, pb, po = plan(reordered)
+    y = torch.einsum(equation, _laid_once(a, pa).to_local(), _laid_once(b, pb).to_local())
     shape = tuple(sizes[c] for c in lo)
     return DTensor.from_local(y, mesh, po, run_check=False, shape=shape,
                               stride=_contiguous_stride(shape))
 
 
+def _reordered(x, target: list, labels: str) -> set:
+    """The labels of the dims of ``x`` that ``target`` splits on a mesh dim
+    outer to one that splits them already: not this rank's slice of its
+    block (DTensor nests a dim's splits in mesh order), a reshard."""
+    return {labels[t.dim] for i, (p, t) in enumerate(zip(x.placements, target))
+            if t.is_shard() and not p.is_shard(t.dim)
+            and any(q.is_shard(t.dim) for q in x.placements[i + 1:])}
+
+
 def _split_last(x) -> tuple:
-    """The axes that split the last dim of the DTensor ``x`` (empty for a
-    plain tensor)."""
-    if not is_distributed(x):
-        return ()
-    last = x.dim() - 1
-    return tuple(a for a, p in zip(x.device_mesh.mesh_dim_names, x.placements)
-                 if p.is_shard(last))
+    """The mesh dims that split the last dim of the DTensor ``x`` (empty for
+    a plain tensor)."""
+    return _split_over(x, x.dim() - 1) if is_distributed(x) else ()
 
 
 def _whole_last(x) -> list:
@@ -804,12 +950,13 @@ def _logsumexp(x, dim, keepdim=False):
     axes that split it."""
     from torch.distributed.tensor import DTensor
 
-    names = _split_last(x)
-    if not names or keepdim or dim not in (-1, x.dim() - 1):
+    dims = _split_last(x)
+    if not dims or keepdim or dim not in (-1, x.dim() - 1):
         return NotImplemented
-    xl = x.to_local()
-    m = pmax(torch.amax(xl, dim=-1, keepdim=True).detach(), names)
-    out = (m + torch.log(psum(torch.sum(torch.exp(xl - m), dim=-1, keepdim=True), names)))[..., 0]
+    xl, group = x.to_local(), _group(dims)
+    m = _reduce(torch.amax(xl, dim=-1, keepdim=True).detach(), dist.ReduceOp.MAX, group)
+    out = (m + torch.log(_Psum.apply(torch.sum(torch.exp(xl - m), dim=-1, keepdim=True),
+                                     group)))[..., 0]
     shape = x.shape[:-1]
     return DTensor.from_local(out, x.device_mesh, _whole_last(x), run_check=False, shape=shape,
                               stride=_contiguous_stride(shape))
@@ -830,7 +977,7 @@ class _Summed(torch.autograd.Function):
 
 
 def _rows(x, dim, kwargs) -> tuple:
-    """The axes that split the last dim of ``x``, where a reduction over
+    """The mesh dims that split the last dim of ``x``, where a reduction over
     ``dim`` is one over that dim alone of a DTensor held in no partial sum
     (empty otherwise)."""
     dims = dim if isinstance(dim, (tuple, list)) else (dim,)
@@ -853,10 +1000,10 @@ def _row_stat(x, out, keepdim):
 def _mean(x, dim=None, **kwargs):
     """``torch.mean`` over a split last dim, as GSPMD partitions it: each
     rank's sum over its block, reduced over the axes that split it."""
-    names = _rows(x, dim, kwargs)
-    if not names:
+    dims = _rows(x, dim, kwargs)
+    if not dims:
         return NotImplemented
-    group = _SHARDED.get().group(names)
+    group = _group(dims)
     out = _Summed.apply(torch.sum(x.to_local(), dim=-1, keepdim=True), group) / x.shape[-1]
     return _row_stat(x, out, kwargs.get("keepdim", False))
 
@@ -865,10 +1012,10 @@ def _var(x, dim=None, **kwargs):
     """``torch.var`` over a split last dim, as JAX's ``var`` partitions: the
     mean, then each rank's squared deviations summed over its block,
     each sum reduced over the axes that split the dim."""
-    names = _rows(x, dim, kwargs)
-    if not names:
+    dims = _rows(x, dim, kwargs)
+    if not dims:
         return NotImplemented
-    group, xl, n = _SHARDED.get().group(names), x.to_local(), x.shape[-1]
+    group, xl, n = _group(dims), x.to_local(), x.shape[-1]
     mu = _Summed.apply(torch.sum(xl, dim=-1, keepdim=True), group) / n
     out = _Summed.apply(torch.sum((xl - mu) ** 2, dim=-1, keepdim=True), group) / (
         n - kwargs.get("correction", 1))
@@ -881,8 +1028,8 @@ def _gather(x, dim, index, **kwargs):
     elsewhere) and the takes are summed over the axes that split it."""
     from torch.distributed.tensor import DTensor, Replicate
 
-    names = _split_last(x)
-    if not names or kwargs or dim not in (-1, x.dim() - 1) or index.shape[-1] != 1:
+    dims = _split_last(x)
+    if not dims or kwargs or dim not in (-1, x.dim() - 1) or index.shape[-1] != 1:
         return NotImplemented
     mesh, keep = x.device_mesh, _whole_last(x)
     xl = x.to_local()
@@ -890,7 +1037,8 @@ def _gather(x, dim, index, **kwargs):
         index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim, run_check=False)
     il = index.redistribute(mesh, keep).to_local() - axis_offset(x, x.dim() - 1)
     here = (il >= 0) & (il < xl.shape[-1])
-    got = psum(torch.where(here, torch.gather(xl, -1, il.clamp(0, xl.shape[-1] - 1)), 0), names)
+    got = _Psum.apply(torch.where(here, torch.gather(xl, -1, il.clamp(0, xl.shape[-1] - 1)), 0),
+                      _group(dims))
     shape = index.shape
     return DTensor.from_local(got, mesh, keep, run_check=False, shape=shape,
                               stride=_contiguous_stride(shape))
@@ -914,12 +1062,15 @@ def _einsum(equation, *operands):
 def _dot_of(equation: str, a, b):
     """``_blocks_dot`` of ``a`` and ``b`` (a plain one read as replicated, a
     partial sum reduced), through ``_Einsum`` where each operand's labels
-    are in the other or the output (its cotangent is then an einsum)."""
+    are in the other or the output (its cotangent is then an einsum); the
+    product's partial sum reduced where it is made, as GSPMD reduces a dot
+    whose contracted label is split (DTensor would carry it on, to be
+    reduced, or reduce-scattered, by a later op)."""
     a, b = _whole([reduced(x) if is_distributed(x) else x for x in (a, b)])
     (la, lb), lo = equation.split("->")[0].split(","), equation.split("->")[1]
     if set(la) <= set(lb + lo) and set(lb) <= set(la + lo):
-        return _Einsum.apply(equation, a, b)
-    return _blocks_dot(equation, a, b)
+        return reduced(_Einsum.apply(equation, a, b))
+    return reduced(_blocks_dot(equation, a, b))
 
 
 class _Einsum(torch.autograd.Function):
@@ -934,7 +1085,7 @@ class _Einsum(torch.autograd.Function):
     def forward(ctx, equation, a, b):
         ctx.equation = equation
         ctx.save_for_backward(a, b)
-        return _blocks_dot(equation, a, b)
+        return _blocks_dot(equation, a, b, forward=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -981,6 +1132,25 @@ class _SumOfPartials(torch.autograd.Function):
         return g, g, None
 
 
+# a sharded trace's slices by index: their backward nodes -> the layout of
+# the tensor sliced (the slice's transpose, a pad, is laid out as it)
+_SLICED: contextvars.ContextVar = contextvars.ContextVar("repro_torch_sliced", default=None)
+
+
+def _getitem(x, idx):
+    """``x[idx]`` of a DTensor by slices: its transpose (``_SliceBack``)
+    lays the cotangent out as ``x`` is laid out, as GSPMD gives a pad the
+    sharding of the operand whose cotangent it makes."""
+    parts = idx if isinstance(idx, tuple) else (idx,)
+    if not is_distributed(x) or not all(isinstance(i, slice) or i is Ellipsis for i in parts):
+        return NotImplemented
+    out = torch.Tensor.__getitem__(x, idx)
+    node, sliced = getattr(out, "grad_fn", None), _SLICED.get()
+    if node is not None and sliced is not None and node.name().startswith("SliceBackward"):
+        sliced[id(node)] = (node, list(x.placements))
+    return out
+
+
 def _host_read(x):
     """``bool`` of a fake tensor: a flag the trace does not carry, read as
     True (a loop that waits on it ends after the round it has run)."""
@@ -998,6 +1168,7 @@ _RULES = {
     torch.mean: _mean, torch.Tensor.mean: _mean, torch.var: _var, torch.Tensor.var: _var,
     torch.add: _add, torch.Tensor.add: _add, torch.Tensor.__add__: _add,
     torch.Tensor.__bool__: _host_read,
+    torch.Tensor.__getitem__: _getitem,
 }
 
 
@@ -1011,28 +1182,177 @@ class _Partitioner(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        rule = _RULES.get(func)
-        if rule is not None:
-            out = rule(*args, **kwargs)
-            if out is not NotImplemented:
-                return out
-        return func(*args, **kwargs)
+        live = _LIVE.get()
+        if live is None:
+            return _partitioned(func, args, kwargs)
+        return live.call(func, args, kwargs, lambda: _partitioned(func, args, kwargs))
+
+
+def _partitioned(func, args, kwargs):
+    rule = _RULES.get(func)
+    if rule is not None:
+        out = rule(*args, **kwargs)
+        if out is not NotImplemented:
+            return out
+    return func(*args, **kwargs)
+
+
+class _Liveness:
+    """XLA's dead-code elimination, for the count: a compiled step computes
+    nothing that none of its outputs reads (a GNN's last layer's irreps of
+    l > 0, which the readout never reads), in the forward or in a
+    rematerialized region's recomputation, so it issues none of the
+    collectives of such an op.  Each top-level call of the forward
+    (``_Partitioner``) is numbered; where every result it returns is a node
+    of the autograd graph, its collectives are counted only if the
+    backward pass ran one of those nodes, or one of them feeds a result
+    outside the graph (a comparison, a ``detach``, an output).  A
+    recomputation (``layers.remat``) makes its forward's calls again, and
+    each of its calls' collectives is counted as its forward call's (the
+    region's call of the same function and rank).  A
+    collective that a later call reuses (XLA's CSE, ``_once``) is counted
+    where that call is.  A program that runs no backward pass counts every
+    collective."""
+
+    def __init__(self):
+        self.nodes: list = []      # each forward call's result nodes (empty: counted)
+        self.funcs: list = []      # and the function it called
+        self.ran: set = set()      # ids of the nodes the backward pass ran
+        self.read: list = []       # nodes read outside the graph
+        self.reused: list = []     # (a call, a later call that reuses its collective)
+        self.at = None             # the forward call whose collectives are issued now
+        self.replay = None         # a recomputation's forward calls by function, and its own
+        self.starts: list = []     # where each rematerialized region's forward starts
+
+    def region(self):
+        """The context for the recomputation of the region whose forward
+        starts now (``recomputation``)."""
+        self.starts.append(len(self.nodes))
+        return self._replaying(self.starts[-1])
+
+    @contextlib.contextmanager
+    def _replaying(self, start: int):
+        # the region's forward calls: up to the next region's start
+        later = [i for i in self.starts if i > start]
+        calls: dict = {}
+        for i in range(start, min(later, default=len(self.funcs))):
+            calls.setdefault(_key(self.funcs[i]), []).append(i)
+        before, self.replay = self.replay, (calls, {})
+        try:
+            yield
+        finally:
+            self.replay = before
+
+    def call(self, func, args, kwargs, run):
+        from torch.utils._pytree import tree_leaves
+
+        outer = self.at
+        if torch._C._current_graph_task_id() != -1:  # the backward pass
+            if self.replay is None:
+                return run()
+            self.at = self._replayed(func)
+            try:
+                return run()
+            finally:
+                self.at = outer
+        i = self.at = len(self.nodes)
+        self.nodes.append(())
+        self.funcs.append(func)
+        try:
+            out = run()
+        finally:
+            self.at = outer
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        nodes = tuple(t.grad_fn for t in outs if t.grad_fn is not None)
+        if outs and len(nodes) == len(outs):
+            for node in set(nodes):
+                node.register_prehook(self._ran(node))
+            self.nodes[i] = nodes
+        elif outs or getattr(func, "__name__", None) in _HOST_READS:
+            # a result outside the graph (a comparison, a detached copy, a
+            # value on the host) reads its inputs; a shape reads none
+            self.read.extend(t.grad_fn for t in tree_leaves((args, kwargs))
+                             if isinstance(t, torch.Tensor) and t.grad_fn is not None)
+        return out
+
+    def _replayed(self, func):
+        """The forward call a recomputation's call of ``func`` makes again:
+        the region's forward call of ``func`` of the same rank among them
+        (calls of other functions that one makes and the other does not,
+        attribute reads that torch versions differ in, leave it in
+        place), or None (counted) past the last."""
+        calls, seen = self.replay
+        key = _key(func)
+        n = seen[key] = seen.get(key, 0) + 1
+        mine = calls.get(key, ())
+        return mine[n - 1] if n <= len(mine) else None
+
+    def _ran(self, node):
+        def hook(grads):
+            self.ran.add(id(node))
+        return hook
+
+    def dead(self) -> set:
+        """The forward calls none of whose results is read: none where no
+        backward pass ran."""
+        if not self.ran:
+            return set()
+        live, todo = set(self.ran), list(self.read)
+        while todo:
+            node = todo.pop()
+            if node is None or id(node) in live:
+                continue
+            live.add(id(node))
+            todo.extend(n for n, _ in node.next_functions)
+        dead = {i for i, nodes in enumerate(self.nodes)
+                if nodes and not any(id(n) in live for n in nodes)}
+        return dead - {first for first, later in self.reused if later not in dead}
+
+
+def _key(func):
+    """A called function as a dict key (a bound method-wrapper is one by its
+    descriptor)."""
+    try:
+        hash(func)
+    except TypeError:
+        return repr(func)
+    return func
+
+
+_HOST_READS = {"item", "tolist", "numpy", "__bool__", "__float__", "__int__", "__index__"}
+_LIVE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_live", default=None)
+
+
+def recomputation():
+    """The context for the recomputation of a rematerialized region whose
+    forward starts now (``layers.remat``): in a sharded trace its calls are
+    that forward's calls again (``_Liveness``); otherwise none."""
+    live = _LIVE.get()
+    return contextlib.nullcontext() if live is None else live.region()
+
+
+def issuing():
+    """The dead-code account of the sharded trace (``_Liveness``) and the
+    forward call whose collective is being issued (None: counted)."""
+    live = _LIVE.get()
+    return (None, None) if live is None else (live, live.at)
 
 
 def axis_offset(x, dim: int) -> int:
     """Where this rank's block of the DTensor ``x`` starts along ``dim``
-    (row-major over the axes that split it)."""
-    mesh = _SHARDED.get()
-    names = tuple(a for a, p in zip(mesh.axis_names, x.placements)
-                  if p.is_shard() and p.dim == dim)
-    return _position(mesh, names) * x.to_local().shape[dim] if names else 0
+    (row-major over the mesh dims that split it)."""
+    idx = 0
+    for i in _split_over(x, dim):
+        idx = idx * x.device_mesh.size(i) + x.device_mesh.get_local_rank(i)
+    return idx * x.to_local().shape[dim]
 
 
 def constrain_axis(x, axis: str, dim: int):
     """JAX's constraint of one dim to one axis with the other dims
     unconstrained (``P(UNCONSTRAINED, ..., axis)``): in a sharded trace,
     ``dim`` split over ``axis``, the other axes kept as they lie (a
-    partial sum reduced); otherwise ``x``."""
+    partial sum reduced), and the cotangent constrained alike (its
+    transpose, ``_Constrain``); otherwise ``x``."""
     from torch.distributed.tensor import Replicate, Shard
 
     if not is_distributed(x):
@@ -1042,8 +1362,8 @@ def constrain_axis(x, axis: str, dim: int):
         raise ValueError(f"axis {axis!r} ({mesh.shape[axis]}) does not divide dim {dim} of "
                          f"{tuple(x.shape)}")
     target = [Shard(dim) if a == axis else Replicate() if p.is_partial() else p
-              for a, p in zip(mesh.axis_names, x.placements)]
-    return _redistribute(x, target)
+              for a, p in zip(_dim_axes(x.device_mesh), x.placements)]
+    return _Constrain.apply(x, target)
 
 
 def local(x):
@@ -1056,9 +1376,8 @@ def psum_over_shards(x: torch.Tensor, like_: torch.Tensor) -> torch.Tensor:
     the axes ``like_`` is split over (none outside a sharded trace)."""
     if not is_distributed(like_):
         return x
-    mesh = _SHARDED.get()
-    names = tuple(a for a, p in zip(mesh.axis_names, like_.placements) if p.is_shard())
-    return psum(x, names, mesh) if names else x
+    dims = tuple(i for i, p in enumerate(like_.placements) if p.is_shard())
+    return _Psum.apply(x, _group(dims)) if dims else x
 
 
 def materialize(tree):
@@ -1168,7 +1487,7 @@ def _block_view(x, size, laid_out_only: bool = False):
     if groups is None:
         return None
     where = {d: (ii, jj) for ii, jj in groups for d in ii}
-    names = x.device_mesh.mesh_dim_names
+    names = _dim_axes(x.device_mesh)
     out, local = [], list(size)
     for i, p in enumerate(x.placements):
         if not p.is_shard():
@@ -1182,7 +1501,7 @@ def _block_view(x, size, laid_out_only: bool = False):
             continue
         ways = math.prod(x.device_mesh.size(k) for k, q in enumerate(x.placements)
                          if q == p)
-        axes = [names[k] for k, q in enumerate(x.placements) if q == p]
+        axes = [names[k] for k, q in enumerate(x.placements) if q == p]  # the factors' axes
         if (ii != [p.dim] or len(jj) != 2 or size[jj[0]] % ways == 0 or size[jj[1]] % ways
                 or x.shape[p.dim] % ways or not set(axes) <= set(_DP_AXES)):
             return None
@@ -1196,6 +1515,64 @@ def _block_view(x, size, laid_out_only: bool = False):
         return None
     shape = torch.Size(size)
     return DTensor.from_local(block.reshape(local), x.device_mesh, out, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def _tiled_view(x, size):
+    """``x.view(size)`` with every split of ``x`` kept, as GSPMD's reshape
+    keeps a tiled layout, or None.  In each run of dims the view maps onto
+    each other (``_groups``; a dim the view keeps keeps its split, padded
+    or not), the splits are one split of the run's
+    flattened elements when they tile it: the dims before the innermost
+    split one held one element a rank, those after it whole, the mesh
+    dims in mesh order.  The view's dims take those mesh dims outermost
+    first, each dim as many as its size takes (a dim of ``H * D`` split
+    ``k`` ways, viewed as ``(H, D)``: ``gcd(H, k)`` ways on ``H``, the rest
+    on ``D``, two factors of one axis), and the split fits where every dim
+    but the innermost it reaches is left one element a rank.  A padded
+    split the view cuts, or one that does not tile, gives None."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    size = list(size)
+    if -1 in size:
+        size[size.index(-1)] = x.numel() // -math.prod(size)
+    groups = _groups(tuple(x.shape), tuple(size))
+    if groups is None or any(
+            not (p.is_shard() or p.is_replicate() or p.is_partial()) for p in x.placements):
+        return None
+    mesh, local = x.device_mesh, list(size)
+    out, padded = list(x.placements), {x.placements[i].dim for i in _padded(x)}
+    for ii, jj in groups:
+        split = {d: _split_over(x, d) for d in ii if _split_over(x, d)}
+        kept = [j for j in jj if size[j] != 1]
+        if len(ii) == 1 and len(kept) == 1 and size[kept[0]] == x.shape[ii[0]]:
+            for i in split.get(ii[0], ()):  # a dim the view keeps: its split as it is
+                out[i] = Shard(kept[0])
+            local[kept[0]] = x.to_local().shape[ii[0]]
+            continue
+        if not split:
+            continue
+        if padded & set(ii):
+            return None
+        inner = max(split)
+        order = [i for d in ii for i in split.get(d, ())]
+        held = {d: x.shape[d] // math.prod(mesh.size(i) for i in split.get(d, ())) for d in ii}
+        if order != sorted(order) or any(held[d] != 1 for d in ii if d < inner):
+            return None
+        k = 0
+        for j in jj:
+            ways = 1
+            while k < len(order) and size[j] % (ways * mesh.size(order[k])) == 0:
+                ways *= mesh.size(order[k])
+                out[order[k]] = Shard(j)
+                k += 1
+            local[j] = size[j] // ways
+            if ways < size[j] and k < len(order):
+                return None
+        if k < len(order):
+            return None
+    shape = torch.Size(size)
+    return DTensor.from_local(x.to_local().reshape(local), mesh, out, run_check=False,
                               shape=shape, stride=_contiguous_stride(shape))
 
 
@@ -1226,7 +1603,9 @@ class _Views:
         x, rest = args[0], args[1:]
         by_size = str(op) in _VIEWS_BY_SIZE
         if by_size:  # before DTensor's rule, which differs between torch versions here
-            out = _block_view(x, rest[0], laid_out_only=True)
+            out = _tiled_view(x, rest[0])
+            if out is None:
+                out = _block_view(x, rest[0], laid_out_only=True)
             if out is not None:
                 return out
         held = self.table.pop(op)
@@ -1256,8 +1635,10 @@ class _Views:
                 if inner in _padded(x):
                     x = _remat(x, [inner])
                     continue
-                target = list(x.placements)
-                target[inner] = Replicate()
+                target, axes = list(x.placements), _dim_axes(x.device_mesh)
+                for i in split:  # the axis's factors alike: the axis at once
+                    if axes[i] == axes[inner] and x.placements[i] == x.placements[inner]:
+                        target[i] = Replicate()
                 x = x.redistribute(x.device_mesh, target)
         finally:
             self.table[op] = held
@@ -1403,11 +1784,14 @@ def _alike(tensors, dim=None) -> list:
 
 class _Join:
     """The handler a sharded trace gives DTensor for ``stack`` and ``cat``:
-    the tensors laid out alike (``_alike``; the joined dim whole for
-    ``cat``), each rank's blocks joined, a new dim whole.  DTensor's own
-    rules differ between torch versions (some shift a split dim past a new
-    last dim of ``stack``, or lay out a ``cat`` along a split dim
-    otherwise)."""
+    the tensors laid out alike (``_alike``), each rank's blocks joined, a
+    new dim whole.  A ``cat`` along a dim they share a split of (each
+    tensor's part of it divided evenly) keeps the split, as GSPMD
+    partitions a concatenate: each tensor moved off the split by one
+    all-to-all over its mesh dims, joined, and the result moved back by
+    one more; along any other dim, that dim whole.  DTensor's own rules
+    differ between torch versions (some shift a split dim past a new last
+    dim of ``stack``, or lay out a ``cat`` along a split dim otherwise)."""
 
     def __call__(self, op, args, kwargs):
         from torch.distributed.tensor import DTensor, Shard
@@ -1416,8 +1800,18 @@ class _Join:
         new = op is torch.ops.aten.stack.default
         dim = (args[1] if len(args) > 1 else (kwargs or {}).get("dim", 0)) % (
             tensors[0].dim() + new)
-        target = _alike(tensors, None if new else dim)
-        y = op([_laid(t, target).to_local() for t in tensors], dim)
+        target, mesh = _alike(tensors), tensors[0].device_mesh
+        dims = () if new else tuple(i for i, p in enumerate(target) if p.is_shard(dim))
+        if dims and any(t.shape[dim] % math.prod(mesh.size(i) for i in dims) for t in tensors):
+            dims = ()
+        if not dims:
+            target = _alike(tensors, None if new else dim)
+        blocks = [_laid(t, target).to_local() for t in tensors]
+        for block in blocks if dims else ():
+            _a2a(block, _group(dims))
+        y = op(blocks, dim)
+        if dims:
+            _a2a(y, _group(dims))
         shape = list(tensors[0].shape)
         if new:
             shape.insert(dim, len(tensors))
@@ -1457,59 +1851,123 @@ class _Softmax(_Takes):
         from torch.distributed.tensor import DTensor
 
         x, dim = args[0], args[1] % args[0].dim()
-        names = tuple(a for a, p in zip(x.device_mesh.mesh_dim_names, x.placements)
-                      if p.is_shard(dim))
-        if not names:
+        dims = _split_over(x, dim)
+        if not dims:
             return self.own(op, args, kwargs)
-        xl = x.to_local()
-        m = pmax(torch.amax(xl, dim=dim, keepdim=True), names)
+        xl, group = x.to_local(), _group(dims)
+        m = _reduce(torch.amax(xl, dim=dim, keepdim=True), dist.ReduceOp.MAX, group)
         e = torch.exp(xl - m)
-        out = e / psum(torch.sum(e, dim=dim, keepdim=True), names)
+        out = e / _Psum.apply(torch.sum(e, dim=dim, keepdim=True), group)
         return DTensor.from_local(out, x.device_mesh, x.placements, run_check=False,
                                   shape=x.shape, stride=x.stride())
 
 
-def _receive(piece: torch.Tensor, names: tuple, src: int) -> torch.Tensor:
-    """XLA's collective-permute into this rank: ``piece``'s shape received
-    from position ``src`` of the group over ``names``."""
-    group = _SHARDED.get().group(names)
+def _receive(piece: torch.Tensor, dims: tuple) -> torch.Tensor:
+    """XLA's collective-permute over the mesh dims ``dims``: ``piece``'s
+    shape received from another rank of their group (one op of the SPMD
+    program, counted once whichever ranks it moves between)."""
+    group = _group(dims)
     buf = torch.empty_like(piece)
-    dist.recv(buf, src=dist.get_global_rank(group, src), group=group)
+    dist.recv(buf, src=dist.get_global_rank(group, 1), group=group)
     return buf
 
 
+def _permutes(ways: int, out_block: int, in_block: int, lo: int, hi: int, off: int) -> dict:
+    """The collective-permutes that move a dim split ``ways`` ways into a
+    layout of it split as many ways: each rank's block of the new layout
+    (``out_block`` elements from ``rank * out_block``), where it lies in
+    ``[lo, hi)``, reads position ``t + off`` of the old layout (blocks of
+    ``in_block``).  ``{shift: elements}``: one permute for each distance
+    between a rank and the rank it reads from, carrying the most that any
+    rank reads over that distance (XLA's halo exchange)."""
+    moves = {}
+    for r in range(ways):
+        t, end = max(lo, r * out_block), min(hi, (r + 1) * out_block)
+        while t < end:
+            q = (t + off) // in_block
+            stop = min(end, (q + 1) * in_block - off)
+            if q != r:
+                moves[q - r] = max(moves.get(q - r, 0), stop - t)
+            t = stop
+    return moves
+
+
+def _shifted(x, block, dim: int, moves: dict, placements, shape):
+    """``block``'s shape along the moved layout, the collective-permutes of
+    ``moves`` issued over the mesh dims that split ``dim``; the DTensor of
+    the result (rank 0's block, the ceiling where its ranks outnumber the
+    dim: GSPMD's padding, which DTensor then keeps)."""
+    from torch.distributed.tensor import DTensor
+
+    dims = _split_over(x, dim)
+    for shift in sorted(moves):
+        piece = list(block.shape)
+        piece[dim] = moves[shift]
+        _receive(block.new_empty(piece), dims)
+    ways = math.prod(x.device_mesh.size(i) for i in dims)
+    if shape[dim] % ways:
+        _PADS.get()["seen"] = True
+    local = list(block.shape)
+    local[dim] = -(-shape[dim] // ways)
+    return DTensor.from_local(block.new_empty(local), x.device_mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def _bounds(n: int, start, end) -> tuple:
+    start = 0 if start is None else start + n if start < 0 else start
+    end = n if end is None else end + n if end < 0 else end
+    return min(max(start, 0), n), min(max(end, 0), n)
+
+
 class _Slice(_Takes):
-    """The handler for ``x[..., i:i + 1, ...]``, one position along a dim
-    split evenly over mesh axes (the last position of a sequence-split
-    hidden state), as GSPMD partitions it: the position taken from the
-    block that holds it and moved to the axes' first rank by a
-    collective-permute, that rank holding the one-position result (the
-    others its padding).  Any other slice, DTensor's own rule (a split dim
-    gathered)."""
+    """The handler for ``x[..., a:b, ...]`` along a dim split over mesh dims,
+    as GSPMD partitions a slice: the result split as the dim was (padded
+    where its ranks outnumber it), each rank's block read from the blocks
+    that hold it by collective-permutes (``_permutes``: one position of a
+    sequence-split hidden state is one permute to the first rank, a half
+    of a split head dim one permute to the neighbour).  A strided slice,
+    or one of a whole dim, DTensor's own rule."""
 
     def __call__(self, op, args, kwargs):
-        from torch.distributed.tensor import DTensor
-
         x, dim, start, end, step = (*args, *(0, None, None, 1)[len(args) - 1:])[:5]
         dim %= x.dim()
         n = x.shape[dim]
-        start = 0 if start is None else start + n if start < 0 else start
-        end = n if end is None else min(end + n if end < 0 else end, n)
-        names = tuple(a for a, p in zip(x.device_mesh.mesh_dim_names, x.placements)
-                      if p.is_shard(dim))
-        ways = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
-                         if p.is_shard(dim))
-        if (kwargs or step != 1 or end - start != 1 or not names or n % ways
+        start, end = _bounds(n, start, end)
+        dims = _split_over(x, dim)
+        if (kwargs or step != 1 or end <= start or not dims
                 or any(p.is_partial() for p in x.placements)):
             return self.own(op, args, kwargs)
-        block = n // ways
-        piece = x.to_local().narrow(dim, start % block, 1)
-        if start // block:
-            piece = _receive(piece, names, start // block)
+        ways = math.prod(x.device_mesh.size(i) for i in dims)
+        m = end - start
         shape = list(x.shape)
-        shape[dim] = 1
-        return DTensor.from_local(piece, x.device_mesh, x.placements, run_check=False,
-                                  shape=torch.Size(shape), stride=_contiguous_stride(shape))
+        shape[dim] = m
+        moves = _permutes(ways, -(-m // ways), -(-n // ways), 0, m, start)
+        return _shifted(x, x.to_local(), dim, moves, x.placements, shape)
+
+
+class _SliceBack(_Takes):
+    """The handler for a slice's transpose (``slice_backward``: the
+    cotangent written into zeros of the input's shape) along a split dim,
+    as GSPMD partitions the pad: split as the cotangent is, each rank's
+    block read from the cotangent's blocks by collective-permutes.  Along
+    a whole dim, DTensor's own rule."""
+
+    def __call__(self, op, args, kwargs):
+        g, sizes, dim, start, end, step = args
+        dim %= len(sizes)
+        n = sizes[dim]
+        start, end = _bounds(n, start, end)
+        dims = _split_over(g, dim)
+        if (kwargs or step != 1 or end <= start or not dims
+                or any(p.is_partial() for p in g.placements)):
+            return self.own(op, args, kwargs)
+        ways = math.prod(g.device_mesh.size(i) for i in dims)
+        moves = _permutes(ways, -(-n // ways), -(-(end - start) // ways), start, end, -start)
+        out = _shifted(g, g.to_local(), dim, moves, g.placements, list(sizes))
+        node, sliced = torch._C._current_autograd_node(), _SLICED.get() or {}
+        if node is not None and id(node) in sliced:  # laid out as the tensor sliced
+            out = _laid(out, sliced[id(node)][1])
+        return out
 
 
 class _RowWise(_Takes):
@@ -1545,11 +2003,10 @@ class _RowWise(_Takes):
         got = xl[tuple(il)]
         mask = here.reshape(*here.shape, *(1,) * (got.dim() - here.dim()))
         if op is torch.ops.aten.index.Tensor:
-            names = tuple(a for a, p in zip(mesh.mesh_dim_names, x.placements)
-                          if p in split and p != Shard(0))
+            dims = tuple(i for i, p in enumerate(x.placements) if p in split and p != Shard(0))
             got = torch.where(mask, got, 0)
-            if names:
-                got = psum(got, names)
+            if dims:
+                got = _Psum.apply(got, _group(dims))
             shape = (*torch.broadcast_shapes(*(i.shape for i in indices)),
                      *x.shape[len(indices):])
             return DTensor.from_local(got, mesh, rows, run_check=False, shape=shape,
@@ -1557,6 +2014,18 @@ class _RowWise(_Takes):
         values = _laid(rest[-1], rows).to_local()
         xl.index_put_(tuple(il), torch.where(mask, values, got), *args[3:])
         return x
+
+
+def _laid_once(x, target: list):
+    """``_laid``, the move issued once a backward pass for a value and its
+    target (``_once``): XLA's CSE merges a rematerialized forward's reshard
+    of an operand with its transposed dots' reshard of the same value (a
+    checkpoint keeps the forward's own apart)."""
+    task = torch._C._current_graph_task_id()
+    if task == -1 or list(x.placements) == target:
+        return _laid(x, target)
+    return _once(("laid", task, tuple(target)), x.to_local(), lambda: _laid(x, target),
+                 fresh=False)
 
 
 def _laid(x, target: list):
@@ -1586,10 +2055,8 @@ def _remat(x, dims: list):
 
     tdims = {x.placements[i].dim for i in dims}
     dims = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim in tdims]
-    mesh = _SHARDED.get()
     shape = [n if d in tdims else m for d, (n, m) in enumerate(zip(x.shape, x.to_local().shape))]
-    whole = _reduce(x.to_local().new_zeros(shape), dist.ReduceOp.SUM,
-                    mesh.group(tuple(mesh.axis_names[i] for i in dims)))
+    whole = _reduce(x.to_local().new_zeros(shape), dist.ReduceOp.SUM, _group(dims))
     return DTensor.from_local(whole, x.device_mesh,
                               [Replicate() if i in dims else p for i, p in enumerate(x.placements)],
                               run_check=False, shape=x.shape, stride=x.stride())
@@ -1603,6 +2070,205 @@ def _unpadded(x, target: list):
     return _remat(x, drop) if drop else x
 
 
+def _uniform(placements, pm) -> list | None:
+    """``placements`` on ``pm``'s factored ``DeviceMesh`` as the unfactored
+    mesh's (one an axis), or None where an axis's factors differ."""
+    out = []
+    for a in pm.axis_names:
+        held = {placements[i] for i in pm.dims(a)}
+        if len(held) != 1:
+            return None
+        out.append(held.pop())
+    return out
+
+
+def _redistributor(original):
+    """DTensor's ``redistribute_local_tensor`` for a trace over a factored
+    mesh: a layout whose axes' factors all hold one placement moves as the
+    unfactored mesh moves it (each axis at once, as DTensor moves the
+    axis: the records of a mesh nothing is tiled on are unchanged; a
+    partial sum over several axes reduced by one all-reduce over their
+    flattened group, as XLA reduces it and as some torch versions merge
+    DTensor's reductions, a dim at a time in others), any other by
+    ``_tiled_move``.  Elsewhere, ``original``."""
+
+    def redistribute_local_tensor(local, current, target, *args, **kwargs):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor._dtensor_spec import DTensorSpec
+
+        pm = _SHARDED.get()
+        if pm is None or pm.logical is None or current.mesh != pm.device_mesh:
+            return original(local, current, target, *args, **kwargs)
+        now, then = _uniform(current.placements, pm), _uniform(target.placements, pm)
+        if now is not None and then is not None:
+            done = [i for i, (p, t) in enumerate(zip(now, then))
+                    if p.is_partial() and t.is_replicate()]
+            if len(done) > 1:
+                op = now[done[0]].reduce_op
+                names = tuple(pm.axis_names[i] for i in done)
+                local = _reduce(local, _REDUCE_OPS[op], pm.group(names))
+                if op == "avg":
+                    local = local / pm.axis_size(names)
+                now = [Replicate() if i in done else p for i, p in enumerate(now)]
+            return original(local, DTensorSpec(pm.logical, tuple(now), current.tensor_meta),
+                            DTensorSpec(pm.logical, tuple(then), target.tensor_meta),
+                            *args, **kwargs)
+        return _tiled_move(local, current, target)
+
+    return redistribute_local_tensor
+
+
+def _respec(tree, mesh, placements_of):
+    """``tree`` (specs, schemas, tuples) with each ``DTensorSpec`` on
+    ``mesh``, its placements mapped by ``placements_of``."""
+    import dataclasses
+
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSchema
+
+    if isinstance(tree, DTensorSpec):
+        return DTensorSpec(mesh, tuple(placements_of(tree.placements)), tree.tensor_meta)
+    if isinstance(tree, OpSchema):
+        return dataclasses.replace(tree, args_schema=_respec(tree.args_schema, mesh, placements_of),
+                                   kwargs_schema=_respec(tree.kwargs_schema, mesh, placements_of))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_respec(t, mesh, placements_of) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _respec(v, mesh, placements_of) for k, v in tree.items()}
+    return tree
+
+
+def _specs(tree) -> list:
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree, is_leaf=lambda t: isinstance(t, DTensorSpec))
+            if isinstance(t, DTensorSpec)]
+
+
+def _runs(pm, specs) -> tuple:
+    """The factored ``DeviceMesh``'s dims cut into runs: the axes where
+    every spec of ``specs`` places each axis's factors alike (the
+    unfactored mesh), else the consecutive dims that every spec places
+    alike (across axes too: fewer dims for DTensor's search)."""
+    alike = all(_uniform(t.placements, pm) is not None for t in specs)
+    runs = []
+    for i, a in enumerate(pm.dim_axes):
+        if runs and (pm.dim_axes[runs[-1][-1]] == a or not alike) and all(
+                t.placements[i] == t.placements[runs[-1][-1]] for t in specs):
+            runs[-1].append(i)
+        else:
+            runs.append([i])
+    return tuple(map(tuple, runs))
+
+
+def _propagator(original):
+    """DTensor's sharding propagation for a trace over a factored mesh: an
+    op propagates on the mesh of the runs its operands place alike
+    (``_runs``): as on the unfactored mesh where each axis's factors hold
+    one placement (the same choices as there), with a dim a run otherwise;
+    the result placed back on the factors.  DTensor searches every
+    combination of its placements over a mesh's dims: one a factor would
+    multiply its work.  Elsewhere, ``original``."""
+    import dataclasses
+
+    def propagate_op_sharding(op_schema):
+        pm = _SHARDED.get()
+        specs = _specs((op_schema.args_schema, op_schema.kwargs_schema))
+        if (pm is None or pm.logical is None or not specs
+                or any(t.mesh != pm.device_mesh for t in specs)):
+            return original(op_schema)
+        runs = _runs(pm, specs)
+
+        def expand(placements):
+            out = [None] * len(pm.dim_axes)
+            for run, p in zip(runs, placements):
+                for i in run:
+                    out[i] = p
+            return out
+
+        out = original(_respec(op_schema, pm.runs_mesh(runs),
+                               lambda ps: [ps[run[0]] for run in runs]))
+        return dataclasses.replace(
+            out, output_spec=_respec(out.output_spec, pm.device_mesh, expand),
+            redistribute_schema=_respec(out.redistribute_schema, pm.device_mesh, expand))
+
+    propagate_op_sharding.cache_clear = getattr(original, "cache_clear", lambda: None)
+    return propagate_op_sharding
+
+
+def _tiled_move(block, current, target):
+    """GSPMD's reshard of a tiled layout (an axis's factors placed apart) on
+    this rank's ``block``, each move one collective over the mesh dims that
+    make it: partial sums reduced by one all-reduce, or to a split by one
+    reduce-scatter a dim; a split moved to another dim by one all-to-all
+    (splits moved between several pairs of dims at once, which XLA cannot
+    reshard efficiently: the blocks replicated over their mesh dims by one
+    all-gather, then sliced, XLA's full rematerialization); a split
+    dropped by one all-gather, after a collective-permute where
+    the mesh dims kept on the dim are inner to the ones dropped (the kept
+    blocks are not the ranks' own: XLA permutes the ranks first); a split
+    added, a slice.  Returns the block of ``target`` (rank 0's)."""
+    shape, mesh = current.tensor_meta.shape, current.mesh
+    now, then = list(current.placements), list(target.placements)
+    if any(not (p.is_shard() or p.is_replicate() or p.is_partial()) or type(p).__name__.startswith(
+            "_Strided") for p in (*now, *then)):
+        raise NotImplementedError(f"no tiled move from {now} to {then}")
+    block = block.contiguous()
+    reduce = [i for i, (p, t) in enumerate(zip(now, then)) if p.is_partial() and t.is_replicate()]
+    if reduce:
+        block = _reduce(block, _REDUCE_OPS[now[reduce[0]].reduce_op], _group(reduce))
+    for i in reduce:
+        now[i] = then[i]
+    scatter = {}
+    for i, (p, t) in enumerate(zip(now, then)):
+        if p.is_partial() and t.is_shard():
+            scatter.setdefault(t.dim, []).append(i)
+    for dim, dims in scatter.items():
+        ways = math.prod(mesh.size(i) for i in dims)
+        if block.shape[dim] % ways:
+            block = _reduce(block, dist.ReduceOp.SUM, _group(dims))
+        else:
+            block = _scatter0(block.movedim(dim, 0), ways, _group(dims)).movedim(0, dim)
+        for i in dims:
+            now[i] = then[i]
+    moves = {}
+    for i, (p, t) in enumerate(zip(now, then)):
+        if p.is_shard() and t.is_shard() and p.dim != t.dim:
+            moves.setdefault((p.dim, t.dim), []).append(i)
+    if len(moves) > 1:  # XLA's involuntary full rematerialization: replicate, then slice
+        dims = sorted(i for d in moves.values() for i in d)
+        ways = math.prod(mesh.size(i) for i in dims)
+        block = _gather0(block.reshape(1, -1), ways, _group(dims))
+        moves = {}
+        for i in dims:
+            now[i] = then[i]
+    for (a, b), dims in moves.items():
+        _a2a(block, _group(dims))
+        ways = math.prod(mesh.size(i) for i in dims)
+        local = list(block.shape)
+        local[a], local[b] = local[a] * ways, -(-local[b] // ways)
+        block = block.new_empty(local)
+        for i in dims:
+            now[i] = then[i]
+    for dim in range(len(shape)):
+        drop = [i for i, (p, t) in enumerate(zip(now, then))
+                if p.is_shard(dim) and not t.is_shard(dim)]
+        if not drop:
+            continue
+        if any(now[i].is_shard(dim) and i > drop[0] for i in range(len(now)) if i not in drop):
+            _receive(block, tuple(i for i, p in enumerate(now) if p.is_shard(dim)))
+        block = _gather0(block.movedim(dim, 0), math.prod(mesh.size(i) for i in drop),
+                         _group(drop)).movedim(0, dim)
+        for i in drop:
+            now[i] = then[i]
+    local = list(shape)
+    for dim in range(len(shape)):
+        ways = math.prod(mesh.size(i) for i, t in enumerate(then) if t.is_shard(dim))
+        local[dim] = -(-shape[dim] // ways)
+    return block.new_empty(local)
+
+
 def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
     """DTensor's shard-to-shard move as the one all-to-all a card mesh
     makes (on a CPU mesh DTensor makes it an all-gather, as gloo has no
@@ -1612,14 +2278,14 @@ def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
                                                  group.group_name)
 
 
-def _shardable_checks() -> list:
-    """DTensor's modules that hold its ``is_tensor_shardable`` check (a
-    split its ranks outnumber is refused), with the check."""
+def _dtensor_hooks(name: str) -> list:
+    """DTensor's modules that hold the function ``name`` (imported by name
+    into several), with the function."""
     import sys
 
-    return [(m, m.is_tensor_shardable) for name, m in list(sys.modules.items())
-            if name.startswith("torch.distributed.tensor") and m is not None
-            and callable(getattr(m, "is_tensor_shardable", None))]
+    return [(m, getattr(m, name)) for key, m in list(sys.modules.items())
+            if key.startswith("torch.distributed.tensor") and m is not None
+            and callable(getattr(m, name, None))]
 
 
 def _keeps_padding(check, pads: dict):
@@ -1674,24 +2340,40 @@ def sharded_trace(mesh, handler: Replicated | None = None, ops=()):
     handlers[aten.linalg_cross.default] = _Cross(table, fallback)
     handlers[aten.index.Tensor] = handlers[aten.index_put_.default] = _RowWise(table, fallback)
     handlers[aten.slice.Tensor] = _Slice(table, fallback)
+    handlers[aten.slice_backward.default] = _SliceBack(table, fallback)
     ops.extend(k for k in handlers if k not in view_ops)
     saved_ops = {op: table.get(op) for op in ops}
     saved_move = placement_types.shard_dim_alltoall
     placement_types.shard_dim_alltoall = _shard_dim_alltoall
     pads = {}
-    checks = _shardable_checks()
+    checks = _dtensor_hooks("is_tensor_shardable")
     for module, check in checks:
         module.is_tensor_shardable = _keeps_padding(check, pads)
+    moves = _dtensor_hooks("redistribute_local_tensor")
+    for module, move in moves:
+        module.redistribute_local_tensor = _redistributor(move)
+    propagator = DTensor._op_dispatcher.sharding_propagator
+    propagates = {name: getattr(propagator, name) for name in (
+        "propagate_op_sharding", "propagate_op_sharding_non_cached")}  # (fake tensors: the latter)
+    for name, propagate in propagates.items():
+        setattr(propagator, name, _propagator(propagate))
     for op in ops:
         table[op] = handlers.get(op, handler)
     _forget_layouts()
     token, issued, padded = _SHARDED.set(mesh), _ISSUED.set({}), _PADS.set(pads)
+    sliced, live = _SLICED.set({}), _LIVE.set(_Liveness())
     try:
         with set_mesh(mesh), implicit_replication(), _Partitioner():
             yield mesh
     finally:
         for module, check in checks:
             module.is_tensor_shardable = check
+        for module, move in moves:
+            module.redistribute_local_tensor = move
+        for name, propagate in propagates.items():
+            setattr(propagator, name, propagate)
+        _LIVE.reset(live)
+        _SLICED.reset(sliced)
         _PADS.reset(padded)
         _ISSUED.reset(issued)
         _SHARDED.reset(token)

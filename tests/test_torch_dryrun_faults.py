@@ -96,7 +96,9 @@ def test_joins_keep_the_split_dim(join, dim):
     """``stack`` and ``cat`` of edge-split (64, 3) tensors and a plain one:
     the split stays on the edges' dim (shifted past a new dim before it)
     and the local block is the rank's rows joined; a ``cat`` along the
-    split dim gathers it first (whole, (192, 3) on every rank)."""
+    split dim keeps the split too, as GSPMD partitions a concatenate (a
+    (48, 3) block a rank), each tensor and the result moved by one
+    all-to-all over the split's ranks; nothing else moves."""
     from repro_torch.launch.mesh import fake_process_mesh
     from torch.distributed.tensor import Replicate, Shard
 
@@ -104,15 +106,63 @@ def test_joins_keep_the_split_dim(join, dim):
         with _Draw("cpu", True, 0):
             xs = [torch.zeros(64, 3) for _ in range(2)]
         ds = [sharding.distribute(x, P("data"), pm) for x in xs]
-        out = join([*ds, xs[0]], dim=dim)
+        with dryrun.Collectives() as counter:
+            out = join([*ds, xs[0]], dim=dim)
         whole = join([*xs, xs[0]], dim=dim)
         assert tuple(out.shape) == tuple(whole.shape)
         rows = 0 if join is torch.cat or dim % 3 > 0 else 1
-        split = join is torch.stack or dim % 2 == 1
-        assert list(out.placements) == [Shard(rows) if split else Replicate(), Replicate()]
+        assert list(out.placements) == [Shard(rows), Replicate()]
         local = list(whole.shape)
-        local[rows] //= 4 if split else 1
+        local[rows] //= 4
         assert tuple(out.to_local().shape) == tuple(local)
+        along = join is torch.cat and dim == 0
+        assert counter.record()["counts"] == ({"all-to-all": 4} if along else {})
+
+
+def _dead_branch_counts(dead: bool, remat, backward: bool = True) -> dict:
+    """The collectives of a loss ``relu(x @ w).sum()`` on a (4, 2) mesh, x
+    split over both axes and the weights whole (the forward gathers x's
+    columns), and of its gradients; with ``dead``, also ``(x * 2) @ w2``,
+    which nothing reads.  ``remat`` "lazy": rematerialized, its forward
+    reading x's shape first as a first call's lazy set-up does, which the
+    recomputation does not."""
+    from repro_torch.launch.mesh import fake_process_mesh
+    from repro_torch.models import layers
+
+    calls = []
+
+    def f(x, w, w2):
+        if remat == "lazy" and not calls:
+            for _ in range(16):
+                x.shape
+        calls.append(x)
+        if dead:
+            (x * 2) @ w2
+        return torch.relu(x @ w).sum()
+
+    with fake_process_mesh(MESH) as pm, sharding.sharded_trace(pm):
+        with _Draw("cpu", True, 0):
+            x, w, w2 = torch.zeros(16, 8), torch.zeros(8, 4), torch.zeros(8, 4)
+        with x.fake_mode, dryrun.Collectives() as counter:
+            args = [sharding.distribute(t, s, pm).requires_grad_() for t, s in
+                    ((x, P("data", "model")), (w, P(None, None)), (w2, P(None, None)))]
+            loss = layers.remat(f, bool(remat))(*args)
+            if backward:
+                torch.autograd.grad(loss, args, allow_unused=True, materialize_grads=True)
+        return counter.record()
+
+
+@pytest.mark.parametrize("remat", [False, True, "lazy"], ids=["plain", "remat", "lazy"])
+def test_dead_code_issues_no_collectives(remat):
+    """XLA's dead-code elimination in the count: a product that nothing
+    reads issues no collective, in the forward or (rematerialized) in its
+    recomputation, so the step counts as it does without it, also where
+    the recomputation makes fewer calls than its forward (torch versions
+    differ in such reads); a forward that runs no backward pass counts it
+    (its gather of x's columns)."""
+    assert _dead_branch_counts(True, remat) == _dead_branch_counts(False, remat)
+    fwd = [_dead_branch_counts(dead, remat, backward=False) for dead in (True, False)]
+    assert fwd[0]["counts"] == {"all-gather": 2} and fwd[1]["counts"] == {"all-gather": 1}, fwd
 
 
 # ------------------------------------------------- the chunked attention arm
